@@ -1,0 +1,582 @@
+"""The Problem: configuration, time loop, I/O and model orchestration.
+
+Counterpart of :class:`gapflow_tpu.problem.Problem`, deterministic subset:
+analytic constitutive laws, rigid topography.  Fields live in a host
+:class:`~gapflow_torch.fields.FieldCollection` of numpy arrays
+(float64); the solver runs on ``device`` in ``dtype``.  Two
+execution paths, as in the JAX package:
+
+- silent runs advance on the device without per-step host I/O: float32 on
+  a CUDA device with a configuration the fused kernels cover takes
+  :meth:`run_compiled_fast` (the CUDA kernels of :mod:`ops.stencil`,
+  residual checked between chunks); anything else takes
+  :meth:`run_compiled` (the plain torch step, reference per-step
+  semantics);
+- non-silent runs advance ``write_freq`` steps at a time
+  (:meth:`run_steps`) and write a frame after each chunk.
+
+Not ported yet (ROADMAP queue 1): GP surrogates and active learning
+(slice 8), elastic deformation (slice 9).  Configurations that need them
+raise ``NotImplementedError``.
+"""
+
+import os
+from collections import deque
+from datetime import datetime
+
+import numpy as np
+import torch
+
+from . import DTYPE, __version__
+from .config import (read_yaml_input, read_yaml_string, write_yaml,
+                     create_output_directory, history_to_csv)
+from .core.state import SimState
+from .core.step import (SolverConfig, make_det_step, make_run_loop,
+                        make_trajectory)
+from .fields import FieldCollection
+from .models import Pressure, WallStress, BulkStress
+from .models.eos import eos_sound_velocity
+from .nc import NCWriter
+from .ops.stencil import make_pallas_loop, pallas_supported
+from .topography import Topography
+from .utils import handle_signals, get_termination_signals, set_quiet, echo
+
+
+def resolve_device(device):
+    """``torch.device`` for ``device``; a CUDA device without CUDA raises
+    (there is no implicit CPU fallback)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run on the CPU")
+    return device
+
+
+class Problem:
+    """A gap-averaged lubrication flow problem.
+
+    Use :meth:`from_yaml` / :meth:`from_string` to construct from sanitized
+    YAML input.  ``device`` is where the solver runs (default ``cuda``);
+    ``dtype`` its float type (default :data:`gapflow_torch.DTYPE`).
+    """
+
+    def __init__(self, options, grid, numerics, prop, geo, device="cuda",
+                 dtype=None):
+        self.device = resolve_device(device)
+        self.dtype = DTYPE if dtype is None else dtype
+
+        self.options = options
+        set_quiet(options.get("silent", False))
+        self.grid = grid
+        self.numerics = numerics
+        self.geo = geo
+        self.prop = prop
+
+        nb_grid_pts = (grid["Nx"] + 2, grid["Ny"] + 2)
+        fc = FieldCollection(nb_grid_pts)
+        self.fc = fc
+
+        # solution field
+        self.step = None
+        self.__field = fc.real_field("solution", (3,))
+        self._initialize(rho0=prop["rho0"], U=geo["U"], V=geo["V"])
+
+        # extra features (slip length, zero)
+        fc.real_field("extra", (1,))
+
+        fc.register_real_field("x")
+        fc.register_real_field("y")
+        fc.register_real_field("pressure")
+        fc.register_real_field("topography", (4,))
+
+        model_args = (fc, prop, geo, self.device, self.dtype)
+        self.pressure = Pressure(*model_args)
+        self.bulk_stress = BulkStress(*model_args)
+        self.wall_stress_xz = WallStress(*model_args, direction="x")
+        self.wall_stress_yz = WallStress(*model_args, direction="y")
+
+        self.topo = Topography(fc, grid, geo, prop)
+
+        self._solver_cfg = SolverConfig.from_dicts(grid, geo, prop, numerics)
+        self._det_step = None
+        self._route = None
+
+        # I/O
+        if not options["silent"]:
+            self.outdir = create_output_directory(options["output"],
+                                                  options["use_tstamp"])
+            full_dict = {"version": __version__}
+            for k, v in zip(["options", "grid", "numerics", "geo", "prop"],
+                            [options, grid, numerics, geo, prop]):
+                full_dict[k] = v
+            write_yaml(full_dict, os.path.join(self.outdir, "config.yml"))
+
+            topofile = NCWriter(os.path.join(self.outdir, "topo.nc"), fc,
+                                field_names=["topography"])
+            try:
+                topofile.append_frame().write()
+            finally:
+                topofile.close()
+
+            self.file = NCWriter(os.path.join(self.outdir, "sol.nc"), fc,
+                                 field_names=["solution", "pressure",
+                                              "wall_stress_xz",
+                                              "wall_stress_yz"])
+
+    # ------------------------------------------------------------------
+    # Constructors
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _get_mandatory_input(input_dict):
+        return (input_dict["options"], input_dict["grid"],
+                input_dict["numerics"], input_dict["properties"],
+                input_dict["geometry"])
+
+    @staticmethod
+    def _check_ported(input_dict):
+        missing = [k for k in ("gp", "db", "md") if input_dict.get(k)]
+        if missing:
+            raise NotImplementedError(
+                f"sections {missing} (GP surrogates, MD database) are not "
+                "ported to gapflow_torch yet (ROADMAP queue 1, slice 8); "
+                "run them with gapflow_tpu")
+
+    @classmethod
+    def from_yaml(cls, fname, device="cuda", dtype=None):
+        """Build a Problem from a YAML file."""
+        print(f"Reading input file: {fname}")
+        with open(fname) as ymlfile:
+            input_dict = read_yaml_input(ymlfile)
+        return cls._from_dict(input_dict, device, dtype)
+
+    @classmethod
+    def from_string(cls, ymlstring, device="cuda", dtype=None):
+        """Build a Problem from a YAML string."""
+        return cls._from_dict(read_yaml_string(ymlstring), device, dtype)
+
+    @classmethod
+    def _from_dict(cls, input_dict, device, dtype):
+        cls._check_ported(input_dict)
+        return cls(*cls._get_mandatory_input(input_dict), device=device,
+                   dtype=dtype)
+
+    # ------------------------------------------------------------------
+    # Field accessors / scalars (host arrays)
+    # ------------------------------------------------------------------
+
+    @property
+    def q(self):
+        """The conserved-variable field (rho, jx, jy), ghost cells included."""
+        return self.__field.p
+
+    @property
+    def q_has_nan(self):
+        return bool(np.any(np.isnan(self.q)))
+
+    @property
+    def q_has_negative_density(self):
+        return bool(np.any(self.q[0] < 0.))
+
+    @property
+    def q_is_valid(self):
+        return not self.q_has_nan and not self.q_has_negative_density
+
+    @property
+    def mass(self):
+        """Total mass integrated over the domain."""
+        return np.sum(self.q[0] * self.topo.h
+                      * self.grid["dx"] * self.grid["dy"])
+
+    @property
+    def kinetic_energy(self):
+        return np.sum((self.q[1] ** 2 + self.q[2] ** 2) / self.q[0] / 2.)
+
+    @property
+    def v_max(self):
+        return np.sqrt((self.q[1] ** 2 + self.q[2] ** 2) / self.q[0]).max()
+
+    @property
+    def dt_crit(self):
+        """Critical timestep from grid spacing, flow speed and sound speed."""
+        return (min(self.grid["dx"], self.grid["dy"])
+                / (self.v_max + self.pressure.v_sound))
+
+    @property
+    def cfl(self):
+        return self.dt / self.dt_crit
+
+    @property
+    def converged(self):
+        return bool(np.all(np.array(self.residual_buffer) < self.tol))
+
+    # ------------------------------------------------------------------
+    # Run loop
+    # ------------------------------------------------------------------
+
+    def run(self, keep_open=False):
+        """Advance until convergence, max_it, or a termination signal.
+
+        If ``options['profile']`` is set, the run is traced with
+        ``torch.profiler`` into ``<profile>/trace.json`` (Chrome trace).
+        """
+        profile_dir = self.options.get("profile")
+        if not profile_dir:
+            return self._run(keep_open)
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            self._run(keep_open)
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+    def _run(self, keep_open=False):
+        if self.step is None:
+            self._pre_run()
+
+        self._stop = False
+        self.history = {"step": [], "time": [], "ekin": [],
+                        "residual": [], "vsound": []}
+
+        # Silent runs need no per-step host I/O: the whole convergence loop
+        # runs on the device.  Float32 CUDA problems the fused kernels
+        # cover take the chunked kernel path (convergence checked at chunk
+        # granularity); everything else the plain step with the reference
+        # per-step semantics.
+        if self.options["silent"]:
+            self._tic = datetime.now()
+            if self._fast_run_eligible():
+                self._route = "run_compiled_fast"
+                self.run_compiled_fast()
+            else:
+                self._route = "run_compiled"
+                self.run_compiled()
+            if not keep_open:
+                self._post_run()
+            return
+
+        self._route = "run_chunked"
+        self._run_chunked(keep_open)
+
+    def _run_chunked(self, keep_open=False):
+        """Non-silent run: on-device chunks of write_freq steps, one frame
+        written after each."""
+        print(61 * "-")
+        print(f"{'Step':6s} {'Timestep':10s} {'Time':10s} "
+              f"{'CFL':10s} {'Residual':10s}")
+        print(61 * "-")
+        self._refresh_det_fields()
+        self.write()
+
+        self._tic = datetime.now()
+        chunk = self.options["write_freq"]
+        while (not self.converged and self.step < self.max_it
+               and not self._stop):
+            n = min(chunk, self.max_it - self.step)
+            self.run_steps(n)
+            self._refresh_det_fields()
+            self.write()
+            handle_signals(self._receive_signal)
+
+        if not keep_open:
+            self._post_run()
+
+    def _refresh_det_fields(self):
+        """Recompute pressure/stress output fields from the current q."""
+        self.pressure.update()
+        self.wall_stress_xz.update()
+        self.wall_stress_yz.update()
+        self.bulk_stress.update()
+
+    def _pre_run(self):
+        self.step = 0
+        self.simtime = 0.
+        self.residual = 1.
+        self._stop = False
+        self.residual_buffer = deque([self.residual], 5)
+
+        if self.numerics["adaptive"]:
+            self.dt = self.numerics["CFL"] * self.dt_crit
+        else:
+            self.dt = self.numerics["dt"]
+
+        self.tol = self.numerics["tol"]
+        self.max_it = self.numerics["max_it"]
+
+    def _receive_signal(self, signum, frame):
+        if signum in get_termination_signals():
+            self._stop = True
+
+    def _post_run(self):
+        walltime = datetime.now() - self._tic
+
+        # final unwritten frame (chunked runs write after every chunk)
+        if (getattr(self, "_last_written_step", None) != self.step
+                and not self.options["silent"]):
+            self.write()
+
+        if not self.options["silent"]:
+            self.file.close()
+
+        speed = self.step / max(walltime.total_seconds(), 1e-12)
+
+        echo(33 * "=")
+        echo("Total walltime   : ", str(walltime).split(".")[0])
+        echo(f"({speed:.2f} steps/s)")
+        echo(33 * "=")
+
+        if not self.options["silent"]:
+            history_to_csv(os.path.join(self.outdir, "history.csv"),
+                           self.history)
+
+    # ------------------------------------------------------------------
+    # Single timestep
+    # ------------------------------------------------------------------
+
+    def _tensor(self, arr):
+        return torch.as_tensor(arr, dtype=self.dtype, device=self.device)
+
+    def _make_state(self):
+        buf = list(self.residual_buffer)[::-1]
+        return SimState(
+            q=self._tensor(self.q),
+            topo=self._tensor(self.topo.full),
+            extra=self._tensor(self.fc.get_real_field("extra").p),
+            dt=self._tensor(self.dt),
+            step=torch.tensor(self.step, dtype=torch.int32,
+                              device=self.device),
+            simtime=self._tensor(self.simtime),
+            ekin_old=self._tensor(self.kinetic_energy_old),
+            residual=self._tensor(self.residual),
+            residual_buffer=self._tensor(buf + [np.inf] * (5 - len(buf))),
+            valid=torch.tensor(True, device=self.device),
+        )
+
+    def _sync_state(self, state):
+        """Copy a state back into the host fields and scalars."""
+        self.q[...] = state.q.cpu().numpy()
+        self.step = int(state.step)
+        self.simtime = float(state.simtime)
+        self.dt = float(state.dt)
+        self.residual = float(state.residual)
+        self.kinetic_energy_old = float(state.ekin_old)
+        self.residual_buffer = deque(
+            [float(r) for r in state.residual_buffer.cpu().numpy()[::-1]
+             if np.isfinite(r)], 5)
+
+    def update(self):
+        """One deterministic MacCormack timestep (plain torch step)."""
+        if self._det_step is None:
+            self._det_step = make_det_step(self._solver_cfg)
+
+        new_state, aux = self._det_step(self._make_state())
+        self._sync_closure_fields(*aux)
+
+        if bool(new_state.valid):
+            self._sync_state(new_state)
+        else:
+            # rollback: q reset to pre-step values by the solver
+            self.q[...] = new_state.q.cpu().numpy()
+            print("Invalid state (NaN or negative density) detected.", end=" ")
+            self._refresh_det_fields()
+            print("Writing previous step and aborting simulation.")
+            self._stop = True
+
+    def _sync_closure_fields(self, p, tau_bulk, s_lo, s_up):
+        """Mirror the last-pass closure fields into the host registry."""
+        self.fc.get_real_field("pressure").p[...] = p.cpu().numpy()
+        self.fc.get_real_field("bulk_viscous_stress").p[...] = \
+            tau_bulk.cpu().numpy()
+        s_lo = s_lo.cpu().numpy()
+        s_up = s_up.cpu().numpy()
+        for field, oi in ((self.fc.get_real_field("wall_stress_xz"), 4),
+                          (self.fc.get_real_field("wall_stress_yz"), 3)):
+            f = field.p
+            f[:3] = s_lo[:3] / 2.
+            f[5] = s_lo[5] / 2.
+            f[oi] = s_lo[oi]
+            f[3 if oi == 4 else 4] = 0.
+            f[6:9] = s_up[:3] / 2.
+            f[11] = s_up[5] / 2.
+            f[oi + 6] = s_up[oi]
+            f[9 if oi == 4 else 10] = 0.
+
+    # ------------------------------------------------------------------
+    # Whole-run paths
+    # ------------------------------------------------------------------
+
+    def run_steps(self, n):
+        """Advance ``n`` deterministic steps on the device; return the
+        trajectory (qs, times), stacked along a leading axis of length n.
+        The Problem state is synced to the final step."""
+        if self.step is None:
+            self._pre_run()
+
+        state, (qs, times) = make_trajectory(self._solver_cfg, n)(
+            self._make_state())
+
+        if not bool(state.valid):
+            # the step rolled back to the last valid q and froze
+            print("Invalid state (NaN or negative density) detected during "
+                  "on-device stepping; stopping at the last valid state.")
+            self._stop = True
+
+        self._sync_state(state)
+        return qs.cpu().numpy(), times.cpu().numpy()
+
+    def run_steps_fast(self, n, dtype=None, compensated=True):
+        """Advance ``n`` fixed-dt steps through the fused stencil loop.
+
+        Float32 by default.  Falls back to :meth:`run_steps` for adaptive
+        dt and for configurations the kernels do not cover.  Tracks no
+        residuals; syncs q afterwards.  ``compensated`` enables Kahan
+        accumulation of the per-step increments, required for small fixed
+        dt in float32 (see ops.stencil.make_pallas_loop).
+        """
+        if self.step is None:
+            self._pre_run()
+        if self.numerics["adaptive"] or not pallas_supported(self._solver_cfg):
+            self.run_steps(n)
+            return
+
+        loop = make_pallas_loop(self._solver_cfg, self.grid["Nx"],
+                                self.grid["Ny"],
+                                dtype=dtype or torch.float32,
+                                compensated=compensated)
+        q = loop(self._tensor(self.q), self.topo.full,
+                 self.fc.get_real_field("extra").p, self.dt, n)
+        self.q[...] = q.cpu().numpy()
+        self.step += n
+        self.simtime += n * self.dt
+
+    def _fast_run_eligible(self):
+        """The chunked kernel run applies to float32 problems on a CUDA
+        device that the fused kernels cover."""
+        return (self.dtype == torch.float32
+                and self.device.type == "cuda"
+                and pallas_supported(self._solver_cfg))
+
+    def run_compiled_fast(self, max_steps=None, chunk=1024,
+                          compensated=True):
+        """Whole convergence run through the fused stencil loop.
+
+        Advances ``chunk`` steps per call of
+        :func:`gapflow_torch.ops.stencil.make_pallas_loop` (compensated
+        accumulation by default, required near steady state in f32), then
+        checks validity and the kinetic-energy residual; with adaptive
+        numerics, dt is refreshed from the CFL criterion between chunks
+        (with a 0.9 safety factor since it stays frozen within a chunk).
+        Convergence = 5 consecutive chunk-averaged residuals below tol.
+        """
+        if self.step is None:
+            self._pre_run()
+        max_steps = max_steps or self.max_it
+
+        cfg = self._solver_cfg
+        loop = make_pallas_loop(cfg, self.grid["Nx"], self.grid["Ny"],
+                                dtype=self.dtype, compensated=compensated)
+
+        def stats(q):
+            ekin = torch.sum((q[1] ** 2 + q[2] ** 2) / q[0] / 2.)
+            ok = torch.isfinite(q).all() & (q[0].min() > 0.)
+            # the CFL criterion's v_max is sqrt(j^2/rho), not the physical
+            # velocity sqrt(j^2/rho^2) (as in core.step.v_max)
+            v_max = torch.sqrt(torch.max((q[1] ** 2 + q[2] ** 2) / q[0]))
+            c_max = torch.max(eos_sound_velocity(q[0], cfg.prop))
+            ekin, ok, v_max, c_max = torch.stack(
+                [ekin, ok.to(q.dtype), v_max, c_max]).tolist()
+            return ekin, bool(ok), v_max, c_max
+
+        # moved to the device once; each chunk derives its statics there
+        topo = self._tensor(self.topo.full)
+        extra = self._tensor(self.fc.get_real_field("extra").p)
+        q = self._tensor(self.q)
+        q_prev = q
+        ekin_old = self.kinetic_energy
+
+        dmin = min(self.grid["dx"], self.grid["dy"])
+        while self.step < max_steps and not self._stop:
+            n = int(min(chunk, max_steps - self.step))
+            q = loop(q, topo, extra, self.dt, n)
+            ekin, ok, v_max, c_max = stats(q)
+
+            if not ok:
+                print("Invalid state (NaN or negative density) detected; "
+                      "stopped at the last valid chunk.")
+                q = q_prev
+                self._stop = True
+                break
+            q_prev = q
+
+            self.step += n
+            self.simtime += n * self.dt
+            # CFL from the CURRENT device state (self.cfl would read the
+            # stale host q, frozen since the loop started)
+            cfl_now = self.dt * (v_max + c_max) / dmin
+            self.residual = (abs(ekin - ekin_old)
+                             / max(ekin_old, 1e-300) / cfl_now / n)
+            self.residual_buffer.append(self.residual)
+            ekin_old = ekin
+            self.kinetic_energy_old = ekin
+
+            if self.numerics["adaptive"]:
+                self.dt = float(0.9 * self.numerics["CFL"] * dmin
+                                / (v_max + c_max))
+
+            handle_signals(self._receive_signal)
+            if self.converged and len(self.residual_buffer) == 5:
+                break
+
+        self.q[...] = q.cpu().numpy()
+        self._refresh_det_fields()
+
+    def run_compiled(self, max_steps=None):
+        """Run the whole convergence loop on the device with the plain
+        torch step (reference per-step semantics).  Output files get only
+        the final frame."""
+        if self.step is None:
+            self._pre_run()
+
+        runner = make_run_loop(self._solver_cfg, self.tol,
+                               max_steps or self.max_it)
+        state = runner(self._make_state())
+
+        if not bool(state.valid):
+            print("Invalid state (NaN or negative density) detected; "
+                  "stopped at the last valid state.")
+            self._stop = True
+
+        self._sync_state(state)
+        self._refresh_det_fields()
+        return state
+
+    # ------------------------------------------------------------------
+    # I/O
+    # ------------------------------------------------------------------
+
+    def write(self, scalars=True, fields=True):
+        if scalars:
+            print(f"{self.step:<6d} {self.dt:.4e} {self.simtime:.4e} "
+                  f"{self.cfl:.4e} {self.residual:.4e}")
+            self.history["step"].append(self.step)
+            self.history["time"].append(self.simtime)
+            self.history["ekin"].append(self.kinetic_energy)
+            self.history["residual"].append(self.residual)
+            self.history["vsound"].append(float(self.pressure.v_sound))
+
+        if fields:
+            self.file.append_frame().write()
+            self._last_written_step = self.step
+
+    # ------------------------------------------------------------------
+    # Helpers
+    # ------------------------------------------------------------------
+
+    def _initialize(self, rho0, U, V):
+        self.__field.p[0] = rho0
+        self.__field.p[1] = rho0 * U / 2.
+        self.__field.p[2] = rho0 * V / 2.
+        self.kinetic_energy_old = self.kinetic_energy

@@ -1,0 +1,90 @@
+"""Correctness checks of the production (float32, fused kernel) path.
+
+Counterpart of the deterministic checks of :mod:`gapflow_tpu.validate`:
+
+- :func:`sommerfeld_l2`: the journal bearing through the fused
+  compensated loop to steady state, against the analytic Sommerfeld
+  pressure (rel-L2 < 0.02 is the acceptance bar);
+- :func:`perturbed_state`: a non-inert journal state for comparing a
+  kernel with its plain twin (the unperturbed float32 state is frozen:
+  its per-step increments fall below one ulp of the density).
+"""
+
+import numpy as np
+import torch
+
+from .core.step import apply_bcs
+
+_JOURNAL = """
+options: {{output: data/val, write_freq: 100000, silent: True}}
+grid: {{dx: 4.e-6, dy: 4.e-6, Nx: {nx}, Ny: {ny}}}
+geometry: {{type: journal, CR: 1.e-2, eps: 0.7, U: 0.1, V: 0.}}
+numerics: {{CFL: 0.5, adaptive: 0, tol: 1e-9, dt: 1.5e-10, max_it: 1000000}}
+properties: {{shear: 0.0794, bulk: 0., EOS: DH, P0: 101325.,
+             rho0: 877.7007, C1: 3.5e10, C2: 1.23}}
+"""
+
+
+def journal_problem(nx=256, ny=128, device="cuda"):
+    from . import Problem
+    return Problem.from_string(_JOURNAL.format(nx=nx, ny=ny), device=device)
+
+
+def sommerfeld_solution(x, Lx, mu, U, clearance_ratio, eps, P0):
+    """Analytic Sommerfeld journal-bearing pressure (full film)."""
+    Rb = Lx / (2. * np.pi)
+    c = clearance_ratio * Rb
+    omega = U / Rb
+    prefac = 6. * mu * omega * (Rb / c) ** 2 * eps
+    return P0 + prefac * np.sin(x / Rb) * (2. + eps * np.cos(x / Rb)) \
+        / ((2. + eps ** 2) * (1. + eps * np.cos(x / Rb)) ** 2)
+
+
+def sommerfeld_l2(n_steps=20000, nx=256, ny=128, device="cuda"):
+    """Rel-L2 pressure error of the float32 compensated loop vs Sommerfeld.
+
+    The float32 parameter constraints (EOS stiffness above f32 ulp, stiff
+    source stability, compensated accumulation against increment
+    underflow) are documented in examples/validate_f32_production.py.
+    """
+    problem = journal_problem(nx=nx, ny=ny, device=device)
+    problem._pre_run()
+    problem.run_steps_fast(n_steps)
+
+    problem._refresh_det_fields()
+    p_num = np.asarray(problem.pressure.pressure)[1:-1, ny // 2]
+
+    Lx = problem.grid["Lx"]
+    x_edges = np.linspace(0., Lx, nx + 1)
+    x = (x_edges[1:] + x_edges[:-1]) / 2.
+
+    dp = p_num[1] - p_num[0]
+    p_ana = sommerfeld_solution(x, Lx, problem.prop["shear"],
+                                problem.geo["U"], problem.geo["CR"],
+                                problem.geo["eps"], p_num[0] - dp / 2)
+    return float(np.linalg.norm(p_ana - p_num) / np.linalg.norm(p_ana))
+
+
+def perturbed_q(q, seed=0, amp=0.01):
+    """Perturbed copy of a ghost-inclusive numpy state: relative density
+    noise and a small jx perturbation (numpy generator, so the JAX
+    package and the port can be fed the same state)."""
+    rng = np.random.default_rng(seed)
+    q = np.array(q, dtype=np.float64)
+    q[0] *= 1. + amp * rng.standard_normal(q[0].shape)
+    q[1] += 0.1 * amp * float(np.mean(q[0])) * rng.standard_normal(q[0].shape)
+    return q
+
+
+def perturbed_state(problem, seed=0, amp=0.01):
+    """The Problem's initial state with :func:`perturbed_q` applied and
+    ghost cells refilled, in the Problem's dtype on its device."""
+    st = problem._make_state()
+    q = problem._tensor(perturbed_q(problem.q, seed, amp))
+    return st._replace(q=apply_bcs(q, problem._solver_cfg))
+
+
+def kernel_vs_plain_err(a, b):
+    """Max abs difference scaled by each component's max magnitude of b."""
+    scale = b.abs().reshape(b.shape[0], -1).max(dim=1).values
+    return float(((a - b).abs() / scale[:, None, None]).max())

@@ -1,0 +1,149 @@
+"""The port's Problem class and CLI agree with the JAX package (CPU, f64)."""
+
+import os
+import subprocess
+import sys
+from dataclasses import replace
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from gapflow_tpu import Problem as JProblem
+from gapflow_torch import Problem
+from gapflow_torch.core.step import apply_bcs
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_MC = """
+options: {{output: data/mc, write_freq: 1000, silent: True}}
+grid: {{dx: 1.e-5, dy: 1., Nx: 64, Ny: 1}}
+geometry: {{type: journal, CR: 1.e-2, eps: 0.5, U: 0.1, V: 0.}}
+numerics: {{CFL: 0.5, adaptive: 0, tol: 1e-8, dt: 5e-11, max_it: 10_000,
+           MC_order: {order}}}
+properties: {{shear: 0.0794, bulk: 0., EOS: DH, P0: 101325.,
+             rho0: 877.7007, C1: 3.5e10, C2: 1.23}}
+"""
+
+_RUN = """
+options: {output: data/torch_run, write_freq: 1000, silent: True}
+grid: {dx: 2.e-5, dy: 2.e-5, Nx: 32, Ny: 16}
+geometry: {type: journal, CR: 1.e-2, eps: 0.7, U: 0.1, V: 0.}
+numerics: {CFL: 0.5, adaptive: 0, tol: 1e-30, dt: 5e-11, max_it: 200}
+properties: {shear: 0.0794, bulk: 0., EOS: DH, P0: 101325.,
+             rho0: 877.7007, C1: 3.5e10, C2: 1.23}
+"""
+
+
+def _mc_problem(order):
+    p = Problem.from_string(_MC.format(order=order), device="cpu")
+    p._pre_run()
+    return p
+
+
+# -- the three properties of tests/test_mc_order.py, for the port ----------
+
+def test_mc_order_zero_alternates():
+    p_alt = _mc_problem(0)
+    p_alt.update()
+    p_alt.update()
+
+    # manual alternation: order +1 for the even step, -1 for the odd step
+    p_ref = _mc_problem(1)
+    p_ref.update()
+    p_ref._solver_cfg = replace(p_ref._solver_cfg, MC_order=-1)
+    p_ref._det_step = None
+    p_ref.update()
+
+    np.testing.assert_array_equal(p_alt.q, p_ref.q)
+
+
+def test_mc_order_direction_matters():
+    q_pos = _mc_problem(1)
+    q_neg = _mc_problem(-1)
+    q_pos.update()
+    q_neg.update()
+    assert np.abs(q_pos.q - q_neg.q).max() > 0.
+
+
+def test_dirichlet_values_land_on_reference_edges():
+    """xE_D is the HIGH-x boundary target, yS_D the high-y one (the
+    reference ghost fill takes each edge's value from the opposite entry)."""
+    sim = """
+options: {output: data/bcvals, write_freq: 1000, silent: True}
+grid: {dx: 2.e-5, dy: 2.e-5, Nx: 16, Ny: 8,
+       xE: ['D', 'N', 'N'], xW: ['D', 'N', 'N'], xE_D: 900., xW_D: 850.,
+       yS: ['D', 'N', 'N'], yN: ['D', 'N', 'N'], yS_D: 830., yN_D: 820.}
+geometry: {type: journal, CR: 1.e-2, eps: 0.7, U: 0.1, V: 0.}
+numerics: {CFL: 0.5, adaptive: 0, tol: 1e-8, dt: 5e-11, max_it: 10}
+properties: {shear: 0.0794, bulk: 0., EOS: DH, P0: 101325.,
+             rho0: 877.7007, C1: 3.5e10, C2: 1.23}
+"""
+    p = Problem.from_string(sim, device="cpu")
+    qn = p.q.copy()
+    out = apply_bcs(torch.as_tensor(qn), p._solver_cfg).numpy()
+    np.testing.assert_allclose(out[0, 0, 1:-1], 2. * 850. - qn[0, 1, 1:-1])
+    np.testing.assert_allclose(out[0, -1, 1:-1], 2. * 900. - qn[0, -2, 1:-1])
+    np.testing.assert_allclose(out[0, 1:-1, 0], 2. * 820. - qn[0, 1:-1, 1])
+    np.testing.assert_allclose(out[0, 1:-1, -1], 2. * 830. - qn[0, 1:-1, -2])
+
+
+# -- whole runs ---------------------------------------------------------------
+
+def test_silent_run_matches_jax():
+    a = JProblem.from_string(_RUN)
+    a.run()
+    b = Problem.from_string(_RUN, device="cpu", dtype=torch.float64)
+    b.run()
+    assert b._route == "run_compiled"      # f64 on the CPU: plain step
+    assert b.step == a.step == 200
+    assert np.abs(b.q - a.q).max() / np.abs(a.q).max() < 1e-9
+    np.testing.assert_allclose(b.pressure.pressure, a.pressure.pressure,
+                               rtol=1e-9)
+
+
+def test_run_steps_fast_matches_run_steps():
+    """The fused-loop path (CPU twins: 2 compensated sweeps + 2
+    remainder steps) against the plain step, at float64."""
+    fast = Problem.from_string(_RUN, device="cpu", dtype=torch.float64)
+    fast.run_steps_fast(10, dtype=torch.float64)
+    plain = Problem.from_string(_RUN, device="cpu", dtype=torch.float64)
+    plain.run_steps(10)
+    assert fast.step == plain.step == 10
+    np.testing.assert_allclose(fast.simtime, plain.simtime, rtol=1e-12)
+    assert np.abs(fast.q - plain.q).max() / np.abs(plain.q).max() < 1e-12
+
+
+def test_cli_writes_outputs(tmp_path):
+    src = (ROOT / "examples" / "config"
+           / "journal_1d_dowson-higginson.yaml").read_text()
+    out = tmp_path / "journal"
+    cfg = tmp_path / "journal.yaml"
+    cfg.write_text(src.replace("max_it: 20_000", "max_it: 300")
+                   .replace("output: data/journal", f"output: {out}")
+                   .replace("use_tstamp: True", "use_tstamp: False"))
+    env = {k: v for k, v in os.environ.items() if k != "GAPFLOW_X64"}
+    res = subprocess.run([sys.executable, "-m", "gapflow_torch", "-i",
+                          str(cfg), "--device", "cpu"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    for name in ("sol.nc", "history.csv", "topo.nc", "config.yml"):
+        assert (out / name).is_file(), name
+    rows = (out / "history.csv").read_text().strip().splitlines()
+    assert rows[0].startswith("step,") and rows[-1].startswith("300.0,")
+
+
+def test_cuda_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Problem.from_string(_RUN)
+
+
+@pytest.mark.parametrize("name", [
+    "journal_1d_dowson-higginson_gp.yaml", "parabolic_1d_elastic.yaml"])
+def test_unported_features_raise(name):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Problem.from_yaml(str(ROOT / "examples" / "config" / name),
+                          device="cpu")
