@@ -3,10 +3,14 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of gapflow_torch from this checkout, checks each
-against its plain torch twin on the card, drives the main path (a silent
-float32 journal-bearing run at 1024 x 1024 through ``Problem.run()``),
-checks the physics against the analytic Sommerfeld solution, and times the
-kernels and their twins.  Any failed phase raises, which exits non-zero
+against its plain torch twin on the card, drives the main paths through
+``Problem.run()`` (a silent float32 journal bearing on periodic edges, an
+inclined slider on Dirichlet/Neumann edges, a rough contact on four D/N
+edges with shear thinning, a journal on mixed per-component edges),
+checks that the kernels and the plain torch step agree on a run, checks
+the physics against the analytic Sommerfeld solution, and holds each
+kernel against its twin again on the main paths' 1024² inputs before
+timing both.  Any failed phase raises, which exits non-zero
 before the result line.  Without CUDA, or without the package beside it,
 the script fails the same way.
 
@@ -17,6 +21,7 @@ the ``nvidia-smi`` name and power limit, and as the last line
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -28,16 +33,21 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 TOL = 1e-5            # component-scaled max error, kernel vs plain twin
+ROUTE_TOL = 1e-4      # scaled max difference, kernel run vs plain-step run
+# phase 3e: the compensated kernel route against the float64 plain step.
+# The f32 plain step itself sits ~5e-4 from that run (its accumulation
+# error); the Kahan carry must bring the kernel route well inside it.
+COMP_ROUTE_TOL = 3e-4
 SOMMERFELD_TOL = 0.02
+THINNING_ENGAGED = 0.9   # phase 3c: the thinning factor must fall below
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM published peaks
+FP32_OPS_PER_S = 67e12
+# Floating-point operations per cell and step of the stencil kernels, an
+# upper estimate counted from csrc/stencil_common.cuh: closures ~75 and
+# EOS/piezoviscosity up to ~30 per pass (thinning adds ~30), the one-sided
+# update ~18, two passes plus the average or the Kahan two-sum.
+OPS_PER_CELL = 300
 
-_JOURNAL = """
-options: {{output: data/smoke, write_freq: 100000, silent: True}}
-grid: {{dx: {dx}, dy: {dx}, Nx: {nx}, Ny: {ny}}}
-geometry: {{type: journal, CR: 1.e-2, eps: 0.7, U: 0.1, V: 0.}}
-numerics: {{CFL: 0.5, adaptive: 0, tol: 1e-30, dt: {dt}, max_it: {max_it}}}
-properties: {{shear: 0.0794, bulk: 0., {props}}}
-"""
-_DH = "EOS: DH, P0: 101325., rho0: 877.7007, C1: 3.5e10, C2: 1.23"
 _BAYADA = ("EOS: Bayada, rho0: 850., rho_l: 850., rho_v: 0.019, "
            "c_l: 1600., c_v: 352.")
 # every EOS and piezoviscosity model the kernel gate admits, one step each
@@ -48,7 +58,7 @@ _BAYADA = ("EOS: Bayada, rho0: 850., rho_l: 850., rho_v: 0.019, "
 # softer C1 = 3.5e8 so that Roelands' (1 + p/p_ref)^z stays real.
 _DH_SOFT = "EOS: DH, P0: 101325., rho0: 877.7007, C1: 3.5e8, C2: 1.23"
 _MODEL_CASES = [
-    ("DH", _DH),
+    ("DH", "EOS: DH, P0: 101325., rho0: 877.7007, C1: 3.5e10, C2: 1.23"),
     ("PL", "EOS: PL, rho0: 1.1853, P0: 101325., alpha: 0."),
     ("vdW", "EOS: vdW, rho0: 1."),
     ("MT", "EOS: MT, rho0: 700."),
@@ -61,33 +71,132 @@ _MODEL_CASES = [
     ("Bayada+McAdams", _BAYADA + ", piezo: {name: McAdams}"),
 ]
 
+# examples/config/inclined_1d_powerlaw.yaml widened to 2D (Lx = Ly, Ny =
+# Nx): D/N x edges, periodic y, power-law EOS
+_INCLINED = """
+options: {{output: data/smoke, write_freq: 100000, silent: True}}
+grid: {{Lx: 1.e-3, Ly: 1.e-3, Nx: {n}, Ny: {n}, xE: ['D', 'N', 'N'],
+        xW: ['D', 'N', 'N'], xE_D: 1.1853, xW_D: 1.1853}}
+geometry: {{type: inclined, hmax: 1.e-5, hmin: 2.e-6, U: 5., V: 0.}}
+numerics: {{CFL: 0.4, adaptive: {adaptive}, tol: 1e-30, dt: {dt},
+           max_it: {max_it}}}
+properties: {{shear: 1.85e-5, bulk: 0., EOS: PL, rho0: 1.1853, P0: 101325.,
+             alpha: 0.}}
+"""
+# examples/config/asperity_2d_lj_gp.yaml without its gp:/db: sections
+# (BWR, D/N on all four edges, LJ units), with Eyring shear thinning.
+# tauE is set so that the thinning factor falls well below 1 (the
+# Couette wall shear stress mu0 |V - U| / h is ~0.01 in LJ units where
+# the gap is narrow); phase 3c prints its minimum.
+_ASPERITY = """
+options: {{output: data/smoke, write_freq: 100000, silent: True}}
+grid: {{Lx: 1470., Ly: 1470., Nx: {n}, Ny: {n}, xE: ['D', 'N', 'N'],
+        xW: ['D', 'N', 'N'], yS: ['D', 'N', 'N'], yN: ['D', 'N', 'N'],
+        xE_D: 0.8, xW_D: 0.8, yS_D: 0.8, yN_D: 0.8}}
+geometry: {{type: asperity, hmin: 12., hmax: 60., num: 2, seed: 0, U: 0.12,
+           V: 0.06}}
+numerics: {{CFL: 0.5, adaptive: 1, tol: 1e-30, dt: 0.05, max_it: {max_it}}}
+properties: {{shear: 2.15, bulk: 0., EOS: BWR, T: 1.0, rho0: 0.8,
+             thinning: {{name: Eyring, tauE: {tauE}}}}}
+"""
+ASPERITY_TAUE = 0.002
+DEVICE = "cuda"
+N = 1024              # main paths and timings
+N_CHECK = 256         # kernel vs twin checks
+MAX_IT = 4098         # 4096 steps of full sweeps + 2 remainder steps
 
-def journal(nx, ny, dx=2e-5, dt=5e-11, max_it=1000000, props=_DH):
+
+def inclined_yaml(n, max_it, adaptive=1, dt=1e-10):
+    return _INCLINED.format(n=n, max_it=max_it, adaptive=adaptive, dt=dt)
+
+
+def asperity_yaml(n, max_it, tauE=ASPERITY_TAUE):
+    return _ASPERITY.format(n=n, max_it=max_it, tauE=tauE)
+
+
+def problem(text):
     from gapflow_torch import Problem
-    return Problem.from_string(_JOURNAL.format(
-        nx=nx, ny=ny, dx=dx, dt=dt, max_it=max_it, props=props),
-        device="cuda")
+    return Problem.from_string(text, device=DEVICE)
 
 
-def kernel_inputs(problem, amp, seed=0):
-    """Interior (q, statics, dt) of a perturbed state on the card."""
-    from gapflow_torch.ops.stencil import interior_statics
+def journal(nx, ny, grid="", props=None, dt=5e-11, max_it=1000000):
+    from gapflow_torch.validate import DH, journal_yaml
+    return problem(journal_yaml(nx, ny, grid, props or DH, dt=dt,
+                                max_it=max_it, out="data/smoke"))
+
+
+def kernel_inputs(p, amp, seed=0, ghosted=False):
+    """Interior q, statics (interior, or ghost-inclusive for the boundary
+    kernels) and dt of a perturbed state on the card."""
+    from gapflow_torch.ops.stencil import ghost_statics, interior_statics
     from gapflow_torch.validate import perturbed_state
-    problem._pre_run()
-    st = perturbed_state(problem, seed=seed, amp=amp)
+    p._pre_run()
+    st = perturbed_state(p, seed=seed, amp=amp)
     q = st.q[:, 1:-1, 1:-1].contiguous()
-    return q, interior_statics(st.topo, st.extra, torch.float32,
-                               q.device), problem.dt
+    statics = ghost_statics if ghosted else interior_statics
+    return q, statics(st.topo, st.extra, torch.float32, q.device), p.dt
 
 
-def check(label, out, ref):
+def mixed_inputs(p, amp, seed=0):
+    """Ghost-inclusive q, statics and the carried ghost lines (standing in
+    for the band lines) of a perturbed mixed-edge state on the card."""
+    from gapflow_torch.ops.stencil import ghost_statics
+    from gapflow_torch.validate import perturbed_state
+    p._pre_run()
+    st = perturbed_state(p, seed=seed, amp=amp)
+    q_g = st.q.contiguous()
+    gx = q_g[:, [0, -1]].contiguous()
+    gy = q_g[:, :, [0, -1]].transpose(1, 2).contiguous()
+    return q_g, ghost_statics(st.topo, st.extra, torch.float32,
+                              q_g.device), gx, gy, p.dt
+
+
+def errors(label, out, ref):
+    """(scaled, abs) max error of ``out`` against ``ref``, both finite."""
     from gapflow_torch.validate import kernel_vs_plain_err
     torch.cuda.synchronize()
     if not (torch.isfinite(out).all() and torch.isfinite(ref).all()):
         raise RuntimeError(f"{label}: non-finite values")
-    err = kernel_vs_plain_err(out, ref)
-    abs_err = float((out - ref).abs().max())
+    return kernel_vs_plain_err(out, ref), float((out - ref).abs().max())
+
+
+def check(label, out, ref):
+    err, abs_err = errors(label, out, ref)
     print(f"  {label}: max scaled err {err:.3e}, max abs err {abs_err:.3e}")
+    if not err < TOL:
+        raise RuntimeError(f"{label}: scaled err {err} >= {TOL}")
+    return abs_err
+
+
+def check_comp_steps(label, kernel, twin, q, lo, st, dt, cfg, n=8):
+    """A compensated kernel held against its twin over ``n`` steps, each
+    step launched from the twin's ``(q, q_lo)`` carry.  Where the model is
+    ill-conditioned in float32 (BWR's cancellation under Eyring thinning),
+    a last-bit difference grows by orders of magnitude within a step or
+    two, so runs that each go their own way are compared only in the
+    printout, beside the twin's own distance after a one-ulp nudge of
+    the density."""
+    from gapflow_torch.validate import kernel_vs_plain_err
+    g = torch.Generator(device=q.device).manual_seed(0)
+    up = torch.rand(q[0].shape, generator=g, device=q.device) < 0.5
+    nudged = q.clone()
+    nudged[0] = torch.where(up, torch.nextafter(q[0], q[0] + 1),
+                            torch.nextafter(q[0], q[0] - 1))
+    qr, lr, qk, lk, qs, ls = q, lo, q, lo, nudged, lo
+    err = abs_err = 0.
+    for _ in range(n):
+        step = kernel(qr, lr, st, dt, cfg, 1)
+        qk, lk = kernel(qk, lk, st, dt, cfg, 1)
+        qr, lr = twin(qr, lr, st, dt, cfg, 1)
+        qs, ls = twin(qs, ls, st, dt, cfg, 1)
+        e, a = errors(label, step[0], qr)
+        err, abs_err = max(err, e), max(abs_err, a)
+        if not (torch.isfinite(step[1]).all() and torch.isfinite(lk).all()):
+            raise RuntimeError(f"{label}: non-finite Kahan carry")
+    print(f"  {label} x{n}, each step from the twin's carry: max scaled err "
+          f"{err:.3e}, max abs err {abs_err:.3e}; after {n} steps on its "
+          f"own {kernel_vs_plain_err(qk, qr):.3e}, the twin after a one-ulp "
+          f"nudge {kernel_vs_plain_err(qs, qr):.3e}")
     if not err < TOL:
         raise RuntimeError(f"{label}: scaled err {err} >= {TOL}")
     return abs_err
@@ -106,6 +215,130 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(ins, outs, cells):
+    """(bound_ms, bound_by): each input read once and each output written
+    once at the HBM rate, against OPS_PER_CELL at the fp32 rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*ins, *outs))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = OPS_PER_CELL * cells / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def drive(label, p, expect):
+    """Problem.run() on one main path with the launch counts set to 0
+    just before it; checks the route, the launches and the state."""
+    from gapflow_torch.ops import stencil as S
+    n = p.grid["Nx"] * p.grid["Ny"]
+    torch.cuda.synchronize()
+    S.reset_launches()
+    t0 = time.perf_counter()
+    p.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(S.LAUNCHES)
+    print(f"  {label}: route {p._route}, steps {p.step}, launches "
+          f"{ {k: v for k, v in launches.items() if v} }, wall {wall:.3f} s, "
+          f"{n * p.step / wall:.4e} cell-updates/s")
+    if p._route != "run_compiled_fast":
+        raise RuntimeError(f"{label} took {p._route}")
+    if p.step != p.max_it:
+        raise RuntimeError(f"{label} stopped at step {p.step}")
+    for k, least in expect.items():
+        if launches[k] < least:
+            raise RuntimeError(f"{label} missed a kernel: {launches}")
+    if not (np.isfinite(p.q).all() and (p.q[0] > 0).all()):
+        raise RuntimeError(f"{label}: non-finite q or rho <= 0")
+    return launches
+
+
+def kernel_times(n=N, reps=200, plain_reps=20):
+    """The five kernels at n x n on the inputs of the main paths (and the
+    compensated K3 with thinning on the asperity contact): each held
+    against its plain twin, then timed.  Returns {kernel: max abs err},
+    {kernel: (ms, plain twin ms)} and {kernel: (bound_ms, bound_by)};
+    times are events over ``reps`` launches after a warm-up, the twins
+    over ``plain_reps``."""
+    from gapflow_torch.ops import mixed_bc as M
+    from gapflow_torch.ops import stencil as S
+    from gapflow_torch.validate import MIXED_CASES
+    cells = n * n
+    errs, times, bounds = {}, {}, {}
+
+    def check_step(label, kernel, twin, *args):
+        return max(check(f"{label} emit_delta={d}",
+                         kernel(*args, emit_delta=d),
+                         twin(*args, emit_delta=d))
+                   for d in (False, True))
+
+    tp = journal(n, n, dt=1e-11)
+    cfg = tp._solver_cfg
+    q, st, dt = kernel_inputs(tp, amp=0.01)
+    lo = torch.zeros_like(q)
+    errs["fused_step"] = check_step("K1 journal", S.fused_step,
+                                    S.fused_step_ref, q, st, dt, cfg)
+    errs["comp_step"] = check_comp_steps(
+        "K2 journal comp_steps", S.comp_steps, S.comp_steps_ref,
+        q, lo, st, dt, cfg)
+    times["fused_step"] = (
+        time_ms(lambda: S.fused_step(q, st, dt, cfg), reps),
+        time_ms(lambda: S.fused_step_ref(q, st, dt, cfg), plain_reps))
+    times["comp_step"] = (
+        time_ms(lambda: S.comp_steps(q, lo, st, dt, cfg, reps), 1) / reps,
+        time_ms(lambda: S.comp_steps_ref(q, lo, st, dt, cfg, 1), plain_reps))
+    bounds["fused_step"] = bound((q, st), (q,), cells)
+    bounds["comp_step"] = bound((q, lo, st), (q, lo), cells)
+
+    tb = problem(inclined_yaml(n, MAX_IT))
+    cfg = tb._solver_cfg
+    q, st, dt = kernel_inputs(tb, amp=0.01, ghosted=True)
+    lo = torch.zeros_like(q)
+    errs["fused_step_bc"] = check_step("K3 inclined", S.fused_step_bc,
+                                       S.fused_step_bc_ref, q, st, dt, cfg)
+    errs["comp_step_bc"] = check_comp_steps(
+        "K3 inclined comp_steps_bc", S.comp_steps_bc, S.comp_steps_bc_ref,
+        q, lo, st, dt, cfg)
+    times["fused_step_bc"] = (
+        time_ms(lambda: S.fused_step_bc(q, st, dt, cfg), reps),
+        time_ms(lambda: S.fused_step_bc_ref(q, st, dt, cfg), plain_reps))
+    times["comp_step_bc"] = (
+        time_ms(lambda: S.comp_steps_bc(q, lo, st, dt, cfg, reps), 1) / reps,
+        time_ms(lambda: S.comp_steps_bc_ref(q, lo, st, dt, cfg, 1),
+                plain_reps))
+    bounds["fused_step_bc"] = bound((q, st), (q,), cells)
+    bounds["comp_step_bc"] = bound((q, lo, st), (q, lo), cells)
+
+    # the thinning variant of K3 (halo 4), on the asperity contact
+    ta = problem(asperity_yaml(n, MAX_IT))
+    cfg = ta._solver_cfg
+    q, st, dt = kernel_inputs(ta, amp=0.01, ghosted=True)
+    lo = torch.zeros_like(q)
+    errs["fused_step_bc"] = max(errs["fused_step_bc"], check_step(
+        "K3 asperity Eyring", S.fused_step_bc, S.fused_step_bc_ref,
+        q, st, dt, cfg))
+    errs["comp_step_bc"] = max(errs["comp_step_bc"], check_comp_steps(
+        "K3 asperity Eyring comp_steps_bc", S.comp_steps_bc,
+        S.comp_steps_bc_ref, q, lo, st, dt, cfg))
+    times["comp_step_bc (Eyring)"] = (
+        time_ms(lambda: S.comp_steps_bc(q, lo, st, dt, cfg, reps), 1) / reps,
+        time_ms(lambda: S.comp_steps_bc_ref(q, lo, st, dt, cfg, 1),
+                plain_reps))
+    bounds["comp_step_bc (Eyring)"] = bound((q, lo, st), (q, lo), cells)
+
+    tm = journal(n, n, MIXED_CASES["both_mixed"], dt=2e-11)
+    cfg = tm._solver_cfg
+    q_g, st, gx, gy, dt = mixed_inputs(tm, amp=0.01)
+    errs["mixed_step"] = check_step("K4 both_mixed", M.mixed_step,
+                                    M.mixed_step_ref, q_g, st, gx, gy, dt,
+                                    cfg)
+    times["mixed_step"] = (
+        time_ms(lambda: M.mixed_step(q_g, st, gx, gy, dt, cfg), reps),
+        time_ms(lambda: M.mixed_step_ref(q_g, st, gx, gy, dt, cfg),
+                plain_reps))
+    bounds["mixed_step"] = bound((q_g, st, gx, gy), (q_g[:, 1:-1, 1:-1],),
+                                 cells)
+    return errs, times, bounds
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -115,7 +348,9 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     from gapflow_torch.ops import _build
+    from gapflow_torch.ops import mixed_bc as M
     from gapflow_torch.ops import stencil as S
+    from gapflow_torch.validate import BC_CASES, MIXED_CASES
 
     # -- phase 1: card, versions, build -----------------------------------
     print(f"card: {smi}")
@@ -128,7 +363,7 @@ def main():
 
     # -- phase 2: kernels vs plain twins, float32 on the card --------------
     print("phase 2: kernel vs plain twin (256 x 256 perturbed journal)")
-    p = journal(256, 256)
+    p = journal(N_CHECK, N_CHECK)
     cfg = p._solver_cfg
     q, st, dt = kernel_inputs(p, amp=0.01)
     err = {}
@@ -146,71 +381,189 @@ def main():
     print("phase 2b: one K1 step per EOS / piezo model (64 x 128)")
     for label, props in _MODEL_CASES:
         pm = journal(64, 128, props=props)
-        if not S.pallas_supported(pm._solver_cfg):
+        if not S._periodic_kernel_ok(pm._solver_cfg):
             raise RuntimeError(f"{label}: kernel gate refuses the model")
         qm, stm, dtm = kernel_inputs(pm, amp=0.01)
         check(label, S.fused_step(qm, stm, dtm, pm._solver_cfg),
               S.fused_step_ref(qm, stm, dtm, pm._solver_cfg))
 
-    # -- phase 3: the main path -------------------------------------------
-    n = 1024
-    max_it = 4098   # 4096 steps of full sweeps + 2 remainder steps
+    # dt 2e-11: at 5e-11 the Barus + Eyring state goes non-finite within
+    # the 8 compensated steps (twin and kernel alike)
+    print("phase 2c: K3 vs plain twin (256 x 256, amplitude 0.01, dt "
+          "2e-11)")
+    err["fused_step_bc"] = err["comp_step_bc"] = 0.
+    for case, (grid, props) in BC_CASES.items():
+        pb = journal(N_CHECK, N_CHECK, grid, props, dt=2e-11)
+        cfg = pb._solver_cfg
+        q, st, dt = kernel_inputs(pb, amp=0.01, ghosted=True)
+        for d in (False, True):
+            err["fused_step_bc"] = max(err["fused_step_bc"], check(
+                f"K3 {case} emit_delta={d}",
+                S.fused_step_bc(q, st, dt, cfg, emit_delta=d),
+                S.fused_step_bc_ref(q, st, dt, cfg, emit_delta=d)))
+        lo = torch.zeros_like(q)
+        qk, lk = S.comp_steps_bc(q, lo, st, dt, cfg, 8)
+        qr, _ = S.comp_steps_bc_ref(q, lo, st, dt, cfg, 8)
+        err["comp_step_bc"] = max(err["comp_step_bc"], check(
+            f"K3 {case} comp_steps_bc x8 (q)", qk, qr))
+        if not torch.isfinite(lk).all():
+            raise RuntimeError("K3: non-finite Kahan carry")
+    for case in ("dn_x", "dn_x_barus_eyring"):       # 1D: Ny = 1
+        pb = journal(1024, 1, *BC_CASES[case])
+        q, st, dt = kernel_inputs(pb, amp=0.01, ghosted=True)
+        check(f"K3 {case} 1024 x 1", S.fused_step_bc(q, st, dt,
+                                                     pb._solver_cfg),
+              S.fused_step_bc_ref(q, st, dt, pb._solver_cfg))
+    print("phase 2c: one K3 step per EOS / piezo model on D/N x edges "
+          "(64 x 128)")
+    for label, props in _MODEL_CASES:
+        rho0 = re.search(r"rho0: ([0-9.e+-]+)", props).group(1)
+        pm = journal(64, 128, f"xE: ['D', 'N', 'N'], xW: ['D', 'N', 'N'], "
+                     f"xE_D: {rho0}, xW_D: {rho0}", props)
+        qm, stm, dtm = kernel_inputs(pm, amp=0.01, ghosted=True)
+        check(label, S.fused_step_bc(qm, stm, dtm, pm._solver_cfg),
+              S.fused_step_bc_ref(qm, stm, dtm, pm._solver_cfg))
+
+    print("phase 2d: K4 vs plain twin (256 x 256, amplitude 0.01)")
+    err["mixed_step"] = 0.
+    for case in ("x_mixed", "both_mixed"):
+        pm = journal(N_CHECK, N_CHECK, MIXED_CASES[case], dt=2e-11)
+        cfg = pm._solver_cfg
+        q_g, st, gx, gy, dt = mixed_inputs(pm, amp=0.01)
+        for d in (False, True):
+            err["mixed_step"] = max(err["mixed_step"], check(
+                f"K4 {case} emit_delta={d}",
+                M.mixed_step(q_g, st, gx, gy, dt, cfg, emit_delta=d),
+                M.mixed_step_ref(q_g, st, gx, gy, dt, cfg, emit_delta=d)))
+        args = (q_g, pm.topo.full, pm.fc.get_real_field("extra").p, dt, 8)
+        loops = [M.make_mixed_loop(cfg, N_CHECK, N_CHECK, compensated=True,
+                                   step_fn=f)(*args)
+                 for f in (M.mixed_step, M.mixed_step_ref)]
+        err["mixed_step"] = max(err["mixed_step"], check(
+            f"K4 {case} compensated loop x8 (ghosts included)", *loops))
+
+    # -- phase 3: the main paths ------------------------------------------
+    n, max_it = N, MAX_IT
     print(f"phase 3: Problem.run(), silent float32 journal {n} x {n}, "
           f"max_it {max_it}")
-    main_p = journal(n, n, dt=1e-11, max_it=max_it)
-    torch.cuda.synchronize()
-    S.reset_launches()
-    t0 = time.perf_counter()
-    main_p.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(S.LAUNCHES)
-    print(f"  route {main_p._route}, steps {main_p.step}, launches "
-          f"{launches}, wall {wall:.3f} s, "
-          f"{n * n * main_p.step / wall:.4e} cell-updates/s")
-    if main_p._route != "run_compiled_fast":
-        raise RuntimeError(f"main path took {main_p._route}")
-    if main_p.step != max_it:
-        raise RuntimeError(f"main path stopped at step {main_p.step}")
-    if launches["comp_step"] < 4096 or launches["fused_step"] < 1:
-        raise RuntimeError(f"main path missed a kernel: {launches}")
-    if not (np.isfinite(main_p.q).all() and (main_p.q[0] > 0).all()):
-        raise RuntimeError("main path: non-finite q or rho <= 0")
+    launches = drive("journal", journal(n, n, dt=1e-11, max_it=max_it),
+                     {"comp_step": 4096, "fused_step": 1})
+
+    print(f"phase 3b: Problem.run(), silent float32 inclined slider {n} x "
+          f"{n}, D/N x edges, PL, adaptive dt, max_it {max_it}")
+    lb = drive("inclined", problem(inclined_yaml(n, max_it)),
+               {"comp_step_bc": 4096, "fused_step_bc": 1})
+    launches["comp_step_bc"] = lb["comp_step_bc"]
+    launches["fused_step_bc"] = lb["fused_step_bc"]
+
+    print(f"phase 3c: Problem.run(), silent float32 asperity contact {n} x "
+          f"{n}, D/N on four edges, BWR, Eyring thinning, max_it 1026")
+    pa = problem(asperity_yaml(n, 1026))
+    drive("asperity", pa, {"comp_step_bc": 1024})
+    from gapflow_torch.core.step import effective_viscosity
+    from gapflow_torch.models.eos import eos_pressure
+    qa = torch.as_tensor(pa.q, dtype=torch.float32, device=DEVICE)
+    h = torch.as_tensor(pa.topo.full[0], dtype=torch.float32, device=DEVICE)
+    cfg = pa._solver_cfg
+    factor = (effective_viscosity(cfg, qa[0], eos_pressure(qa[0], cfg.prop), h)
+              / cfg.shear)[1:-1, 1:-1]
+    f_min = float(factor.min())
+    print(f"  thinning factor eta/mu0: min {f_min:.4f}, "
+          f"mean {float(factor.mean()):.4f} (tauE {ASPERITY_TAUE})")
+    if not f_min < THINNING_ENGAGED:
+        raise RuntimeError(f"thinning not engaged: min factor {f_min}")
+
+    print("phase 3d: Problem.run(), silent float32 journal 256 x 256 on "
+          "mixed P/D/N edges (both axes), max_it 256")
+    pm = journal(N_CHECK, N_CHECK, MIXED_CASES["both_mixed"], dt=2e-11,
+                 max_it=256)
+    lm = drive("mixed journal", pm, {"mixed_step": 256})
+    launches["mixed_step"] = lm["mixed_step"]
+
+    # The plain torch step accumulates each increment into the f32 state,
+    # so the check holds the uncompensated kernel route (K3 once per step)
+    # to it.  The compensated route (the default) differs from it by the
+    # plain step's f32 accumulation error, so it is held to the plain step
+    # run in float64 instead, within COMP_ROUTE_TOL.
+    print("phase 3e: route agreement, inclined slider 128 x 128, fixed dt "
+          "1e-9, 200 steps: run_compiled_fast vs run_compiled (f32 on the "
+          "card)")
+    runs = {}
+    for route, comp, expect in (("run_compiled_fast", False, "fused_step_bc"),
+                                ("run_compiled_fast", True, "comp_step_bc"),
+                                ("run_compiled", None, None)):
+        pr = problem(inclined_yaml(128, 200, adaptive=0, dt=1e-9))
+        pr._pre_run()
+        S.reset_launches()
+        getattr(pr, route)(**({} if comp is None else {"compensated": comp}))
+        label = route if comp is None else f"{route} compensated={comp}"
+        print(f"  {label}: launches "
+              f"{ {k: v for k, v in S.LAUNCHES.items() if v} }")
+        if sum(S.LAUNCHES.values()) != (200 if expect else 0) or (
+                expect and S.LAUNCHES[expect] != 200):
+            raise RuntimeError(f"{label}: unexpected launches {S.LAUNCHES}")
+        if pr.step != 200:
+            raise RuntimeError(f"{label} stopped at step {pr.step}")
+        runs[comp] = torch.as_tensor(pr.q)
+    from gapflow_torch import Problem
+    from gapflow_torch.validate import kernel_vs_plain_err
+    p64 = Problem.from_string(inclined_yaml(128, 200, adaptive=0, dt=1e-9),
+                              device=DEVICE, dtype=torch.float64)
+    p64.run_compiled()
+    q64 = torch.as_tensor(p64.q)
+    route_err = kernel_vs_plain_err(runs[False], runs[None])
+    print(f"  scaled max difference, uncompensated kernel route vs plain "
+          f"step {route_err:.3e}; compensated kernel route vs plain step "
+          f"{kernel_vs_plain_err(runs[True], runs[None]):.3e}")
+    to64 = {c: kernel_vs_plain_err(runs[c], q64) for c in runs}
+    print("  scaled max difference to the float64 plain step: "
+          + ", ".join(f"{k} {to64[c]:.3e}"
+                      for k, c in (("plain step", None),
+                                   ("uncompensated", False),
+                                   ("compensated", True))))
+    if not (np.isfinite(route_err) and route_err < ROUTE_TOL):
+        raise RuntimeError(f"routes disagree: {route_err} >= {ROUTE_TOL}")
+    if not (np.isfinite(to64[True]) and to64[True] < COMP_ROUTE_TOL):
+        raise RuntimeError(f"compensated route vs float64 plain step: "
+                           f"{to64[True]} >= {COMP_ROUTE_TOL}")
 
     # -- phase 4: physics ---------------------------------------------------
     from gapflow_torch.validate import sommerfeld_l2
     t0 = time.perf_counter()
-    l2 = sommerfeld_l2(device="cuda")
+    l2 = sommerfeld_l2(device=DEVICE)
     print(f"phase 4: Sommerfeld rel-L2 {l2:.5f} (256 x 128, 20000 "
           f"compensated f32 steps, {time.perf_counter() - t0:.1f} s)")
     if not l2 < SOMMERFELD_TOL:
         raise RuntimeError(f"Sommerfeld rel-L2 {l2} >= {SOMMERFELD_TOL}")
 
-    # -- phase 5: timing at 1024^2 --------------------------------------------
-    tp = journal(n, n, dt=1e-11)
-    cfg = tp._solver_cfg
-    q, st, dt = kernel_inputs(tp, amp=0.01)
-    lo = torch.zeros_like(q)
-    reps = 200
-    times = {
-        "fused_step": (time_ms(lambda: S.fused_step(q, st, dt, cfg), reps),
-                       time_ms(lambda: S.fused_step_ref(q, st, dt, cfg), 20)),
-        "comp_step": (time_ms(lambda: S.comp_steps(q, lo, st, dt, cfg, reps),
-                              1) / reps,
-                      time_ms(lambda: S.comp_steps_ref(q, lo, st, dt, cfg, 1),
-                              20)),
-    }
+    # -- phase 5: the kernels at the main paths' shapes ----------------------
+    print(f"phase 5: kernel vs plain twin on the main paths' inputs, {n} x "
+          f"{n}, amplitude 0.01")
+    errs, times, bounds = kernel_times(n)
+    for k, e in errs.items():
+        err[k] = max(err[k], e)
     for k, (ms, plain) in times.items():
         print(f"phase 5: {k} {n}x{n}: kernel {ms:.4f} ms/step, plain twin "
-              f"{plain:.4f} ms/step")
+              f"{plain:.4f} ms/step, bound {bounds[k][0]:.4f} ms "
+              f"({bounds[k][1]})")
 
+    sources = {k: "gapflow_torch/csrc/stencil.cu"
+               for k in ("fused_step", "comp_step")}
+    sources.update({k: "gapflow_torch/csrc/stencil_bc.cu"
+                    for k in ("fused_step_bc", "comp_step_bc", "mixed_step")})
     replaces = {"fused_step": "gapflow_tpu/ops/stencil.py:897",
-                "comp_step": "gapflow_tpu/ops/stencil.py:681"}
+                "comp_step": "gapflow_tpu/ops/stencil.py:681",
+                "fused_step_bc": "gapflow_tpu/ops/stencil.py:370",
+                "comp_step_bc": "gapflow_tpu/ops/stencil.py:759",
+                "mixed_step": "gapflow_tpu/ops/mixed_bc.py:246"}
+    # no single PyTorch call computes a MacCormack step: library_ms null
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": "gapflow_torch/csrc/stencil.cu",
+        {"name": k, "route": "cuda", "source": sources[k],
          "replaces": replaces[k], "launches": launches[k],
-         "max_abs_err": err[k], "ms": times[k][0], "plain_ms": times[k][1]}
-        for k in ("fused_step", "comp_step")]}))
+         "max_abs_err": err[k], "ms": times[k][0], "plain_ms": times[k][1],
+         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+         "library_ms": None}
+        for k in replaces]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -142,11 +142,12 @@ def mc_directions(mc_order):
 # Constitutive closures (deterministic path)
 # ---------------------------------------------------------------------------
 
-def effective_viscosity(cfg, q, p, h):
-    """Shear viscosity after piezoviscous and shear-thinning corrections."""
+def effective_viscosity(cfg, rho, p, h):
+    """Shear viscosity after piezoviscous and shear-thinning corrections,
+    from the density ``rho`` and the pressure ``p`` of the same cells."""
     prop = cfg.prop
     if cfg.piezo is not None:
-        arg = q[0] if prop["EOS"] == "Bayada" else p
+        arg = rho if prop["EOS"] == "Bayada" else p
         mu0 = piezoviscosity(arg, cfg.shear, prop["piezo"])
     else:
         mu0 = cfg.shear
@@ -168,7 +169,7 @@ def det_closures(cfg, q, topo, extra):
     prop = cfg.prop
     h3 = topo[:3]
     p = eos_pressure(q[0], prop)
-    eta = effective_viscosity(cfg, q, p, h3[0])
+    eta = effective_viscosity(cfg, q[0], p, h3[0])
     Ls = extra
 
     s_lower = stress_bottom(q, h3, cfg.U, cfg.V, eta, cfg.bulk, Ls)

@@ -1,9 +1,12 @@
 """Build and bind the CUDA kernels of ``gapflow_torch/csrc``.
 
-The sources are compiled at first use with ``nvcc`` into a shared library
-with a plain C interface, under ``build/gapflow_torch/`` at the repository
-root, and loaded with :mod:`ctypes`.  The library name carries a hash of
-the source, so an edited source is rebuilt and a current build is reused.
+Every ``csrc/*.cu`` is compiled at first use with ``nvcc`` (one process
+per source, all started together) and the objects are linked into one
+shared library with a plain C interface, under ``build/gapflow_torch/``
+at the repository root, loaded with :mod:`ctypes`.  The library name
+carries a hash of every source and header and of the flags, so an edited
+source is rebuilt and a current build is reused.  ``ptxas`` reports each
+kernel's registers, shared memory and spills into ``<library>.log``.
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
 
@@ -16,16 +19,16 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "stencil.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "gapflow_torch"
 
 # --fmad=false: no contraction of a*b + c into one rounding, so the kernel
 # rounds op for op like its plain torch twin; differences between the two
 # then stay at the ulp level even where float32 evaluation of a model is
-# ill-conditioned (the BWR polynomial, DH's r - 1).  The kernel is bound by
-# memory bytes, not by arithmetic.
+# ill-conditioned (the BWR polynomial, DH's r - 1).  The kernels are bound
+# by memory bytes, not by arithmetic.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,7 +38,21 @@ _SIGNATURES = {
     "gf_fused_step": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _P],
     # q, lo, st, q_out, lo_out, nx, ny, d0, iprm, fprm, dt, stream
     "gf_comp_step": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _P],
+    # q, st, out, nx, ny, d0, emit_delta, iprm, fprm, bprm, bfprm, dt, stream
+    "gf_fused_step_bc": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _F, _P],
+    # q, lo, st, q_out, lo_out, nx, ny, d0, iprm, fprm, bprm, bfprm, dt,
+    # stream
+    "gf_comp_step_bc": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _F,
+                        _P],
+    # qg, st, gx, gy, out, nx, ny, d0, emit_delta, iprm, fprm, bprm, bfprm,
+    # dt, stream
+    "gf_mixed_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                      _F, _P],
 }
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
 
 
 def find_nvcc():
@@ -55,9 +72,18 @@ def find_nvcc():
 
 
 def library_path():
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libgapflow_stencil_{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"libgapflow_stencil_{h.hexdigest()[:16]}.so"
+
+
+def _run(cmd):
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    return res.stdout + res.stderr
 
 
 def build():
@@ -66,12 +92,27 @@ def build():
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    nvcc = find_nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                str(src)], stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True), src)
+             for src, obj in zip(sources(), objs)]
+    log, failed = [], []
+    for proc, src in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    log.append(_run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+                     *map(str, objs)]))
+    for obj in objs:
+        obj.unlink()
+    lib.with_suffix(".log").write_text("\n".join(log))
     os.replace(tmp, lib)
     return lib
 

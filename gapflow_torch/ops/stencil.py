@@ -1,25 +1,38 @@
-"""Fused periodic MacCormack step: CUDA kernels, their plain twins, drivers.
+"""Fused MacCormack steps: CUDA kernels, their plain twins, drivers.
 
-Counterpart of the periodic path of :mod:`gapflow_tpu.ops.stencil`.  Two
-kernels, in ``csrc/stencil.cu``:
+Counterpart of :mod:`gapflow_tpu.ops.stencil`.  Four kernels, in
+``csrc/stencil.cu`` (periodic) and ``csrc/stencil_bc.cu`` (boundary):
 
-- :func:`fused_step` (replaces ``_kernel_fused``): one step on the
-  interior ``(3, nx, ny)`` state, returning the new state or, with
+- :func:`fused_step` (replaces ``_kernel_fused``): one periodic step on
+  the interior ``(3, nx, ny)`` state, returning the new state or, with
   ``emit_delta``, the increment ``((q* - q) - u) / 2``;
 - :func:`comp_steps` (replaces ``_kernel_fused_hbm_loop`` with
-  ``_advance_comp``): ``n`` Kahan-compensated steps on the ``(q, q_lo)``
-  carry, one launch per step, ping-ponging two buffer pairs.
+  ``_advance_comp``): ``n`` Kahan-compensated periodic steps on the
+  ``(q, q_lo)`` carry, one launch per step, ping-ponging two buffer pairs;
+- :func:`fused_step_bc` (replaces ``_kernel_fused_bc``): one step on
+  Dirichlet/Neumann edges, with shear thinning on any edges, the ghosts
+  built from the interior by the edge formulas and refilled between the
+  passes;
+- :func:`comp_steps_bc` (replaces ``_kernel_fused_bc_hbm``, ``nch = 6``):
+  its compensated form, one launch per step.
 
-Beside each kernel is its plain torch twin (:func:`fused_step_ref`,
-:func:`comp_steps_ref`), which mirrors ``_one_pass_fused`` with
-``torch.roll`` on the periodic interior.  A wrapper takes the twin only for
-a tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
-Every launch adds one to its entry in :data:`LAUNCHES`.
+The mixed-edge kernel (``_kernel_fused_bc_mixed``) and its driver are in
+:mod:`gapflow_torch.ops.mixed_bc`.
 
-Coverage (:func:`pallas_supported`): fully periodic edges, a static pass
-order (``MC_order != 0``) and no shear thinning, with every EOS and
-piezoviscosity model.  D/N edges, mixed edges and thinning run the plain
-torch step until their kernels are ported.
+Beside each kernel is its plain torch twin (``*_ref``), which mirrors
+``_one_pass_fused`` with ``torch.roll``: on the periodic interior, or on
+the ghost-inclusive layout with the ghosts refilled by ``apply_bcs``
+between the passes and shear thinning from ``torch.gradient`` of the
+ghost-inclusive pressure (``core.step.effective_viscosity``).  A wrapper
+takes the twin only for a tensor on the CPU; for a CUDA tensor it
+launches the kernel or raises.  Every launch adds one to its entry in
+:data:`LAUNCHES`.
+
+Coverage (:func:`pallas_supported`): a static pass order
+(``MC_order != 0``) and edges that are each fully periodic or have no
+periodic component, with every EOS, piezoviscosity and shear-thinning
+model.  Fully periodic edges without thinning take K1/K2, everything else
+K3.  Mixed per-component edges: :func:`ops.mixed_bc.mixed_supported`.
 """
 
 import functools
@@ -30,11 +43,11 @@ import numpy as np
 import torch
 
 from . import _build
-from ..core.step import mc_directions
+from ..core.step import apply_bcs, effective_viscosity, mc_directions
 from ..models.closures_opt import (N_STATIC, fused_pass_top_pre,
                                    precompute_statics)
 from ..models.eos import _PRESSURE, _bwr_terms, eos_pressure
-from ..models.viscosity import _PIEZO, piezoviscosity
+from ..models.viscosity import _PIEZO, _THINNING
 
 #: Steps per sweep of the compensated loop: full sweeps go through
 #: :func:`comp_steps`, the remainder through :func:`fused_step` with
@@ -43,8 +56,9 @@ from ..models.viscosity import _PIEZO, piezoviscosity
 K_MULTI = 4
 
 #: Kernel launches per wrapper since the last reset (the plain twins
-#: count nothing).
-LAUNCHES = {"fused_step": 0, "comp_step": 0}
+#: count nothing).  ``mixed_step`` counts :func:`ops.mixed_bc.mixed_step`.
+LAUNCHES = {"fused_step": 0, "comp_step": 0, "fused_step_bc": 0,
+            "comp_step_bc": 0, "mixed_step": 0}
 
 
 def reset_launches():
@@ -56,32 +70,56 @@ def _fully_periodic(cfg):
     return all(all(dict(cfg.bc[i])["P"]) for i in range(4))
 
 
+def _edge_mixed(cfg, i):
+    """Edge ``i`` has periodic and non-periodic components."""
+    P = cfg.bc_edge(i)["P"]
+    return any(P) and not all(P)
+
+
+def _edges_uniform(cfg):
+    """Every edge is either fully periodic or has no periodic component.
+
+    Mixed P/D components on one edge keep the serial quirk of leaving the
+    periodic component's ghost stale; those run through
+    :mod:`ops.mixed_bc`, which carries the ghosts as state.
+    """
+    return not any(_edge_mixed(cfg, i) for i in range(4))
+
+
 def pallas_supported(cfg):
-    """Whether the fused kernels cover ``cfg``: fully periodic edges, a
-    static pass order and no shear thinning.  Unlike the TPU kernels the
-    grid width needs no alignment."""
-    return (cfg.MC_order != 0 and cfg.thinning is None
-            and _fully_periodic(cfg))
+    """Whether the fused kernels cover ``cfg``: a static pass order and
+    per-edge uniform edges (fully periodic, or Dirichlet/Neumann per
+    component), with any EOS, piezoviscosity and shear thinning.  Unlike
+    the TPU kernels the grid width needs no alignment."""
+    return cfg.MC_order != 0 and _edges_uniform(cfg)
+
+
+def _periodic_kernel_ok(cfg):
+    """K1/K2's coverage: fully periodic edges and no shear thinning."""
+    return pallas_supported(cfg) and cfg.thinning is None \
+        and _fully_periodic(cfg)
+
+
+def _k_steps(cfg):
+    """Steps per sweep of the compensated loop: the TPU kernel's
+    temporal-blocking depth, halved by shear thinning (its viscosity reads
+    the pressure at +-1, doubling the halo each step consumes)."""
+    return K_MULTI // 2 if cfg.thinning is not None else K_MULTI
 
 
 # ---------------------------------------------------------------------------
 # Plain twins
 # ---------------------------------------------------------------------------
 
-def _eta_fused(cfg, rho, p):
-    """Per-cell shear viscosity (piezoviscous or constant); the cavitation
-    mixture models take density with the Bayada EOS."""
-    if cfg.piezo is None:
-        return cfg.shear
-    arg = rho if cfg.prop["EOS"] == "Bayada" else p
-    return piezoviscosity(arg, cfg.shear, dict(cfg.piezo))
-
-
 def _one_pass(cfg, q0, q1, q2, st, dt, d, return_upd=False):
-    """One one-sided pass on the periodic interior (``_one_pass_fused``).
-    ``return_upd`` returns the update ``u`` (``q_new = q - u``)."""
+    """One one-sided pass (``_one_pass_fused``), on the periodic interior
+    or on a ghost-inclusive layout (where the rolls' wrap only reaches
+    ghost cells, which the caller refills).  Shear thinning needs the
+    ghost-inclusive layout: ``torch.gradient`` is one-sided at its ghost
+    rows and columns.  ``return_upd`` returns the update ``u``
+    (``q_new = q - u``)."""
     p = eos_pressure(q0, cfg.prop)
-    eta = _eta_fused(cfg, q0, p)
+    eta = effective_viscosity(cfg, q0, p, st[2])
     tb_xx, tb_yy, tb_xy, S0, S1, S2 = fused_pass_top_pre(
         q0, q1, q2, st, cfg.U, cfg.V, eta, cfg.bulk)
 
@@ -102,24 +140,39 @@ def _one_pass(cfg, q0, q1, q2, st, dt, d, return_upd=False):
     return q0 - u0, q1 - u1, q2 - u2
 
 
-def _predict_and_update(cfg, q, statics, dt):
-    """Pass d0 (predictor state) and the pass-d1 update ``u``."""
+def _predict_and_update(cfg, q, statics, dt, refill=None):
+    """Pass d0 (predictor state, ghosts refilled by ``refill``) and the
+    pass-d1 update ``u``."""
     d0, d1 = mc_directions(cfg.MC_order)
     st = tuple(statics)
     pred = _one_pass(cfg, q[0], q[1], q[2], st, dt, d0)
+    if refill is not None:
+        pred = tuple(refill(torch.stack(pred)))
     u = _one_pass(cfg, *pred, st, dt, d1, return_upd=True)
     return pred, u
 
 
+def _combine(pred, q, u, emit_delta):
+    """The step's new state ``((q* - u) + q) / 2`` or, with
+    ``emit_delta``, its increment ``((q* - q) - u) / 2``."""
+    if emit_delta:
+        return torch.stack([((a - b) - du) / 2.
+                            for a, b, du in zip(pred, q, u)])
+    return torch.stack([((a - du) + b) / 2. for a, b, du in zip(pred, q, u)])
+
+
+def _kahan(q, lo, delta):
+    """One two-sum of the increment into the ``(q, q_lo)`` carry, in the
+    order of ``_advance_comp``."""
+    y = delta + lo
+    t = q + y
+    return t, y - (t - q)
+
+
 def fused_step_ref(q_int, statics, dt, cfg, emit_delta=False):
     """Plain torch twin of :func:`fused_step`."""
-    dt = float(dt)
-    pred, u = _predict_and_update(cfg, q_int, statics, dt)
-    if emit_delta:
-        return torch.stack([((a - q) - du) / 2.
-                            for a, q, du in zip(pred, q_int, u)])
-    return torch.stack([((a - du) + q) / 2.
-                        for a, q, du in zip(pred, q_int, u)])
+    pred, u = _predict_and_update(cfg, q_int, statics, float(dt))
+    return _combine(pred, q_int, u, emit_delta)
 
 
 def comp_steps_ref(q_int, q_lo, statics, dt, cfg, n):
@@ -128,11 +181,47 @@ def comp_steps_ref(q_int, q_lo, statics, dt, cfg, n):
     dt = float(dt)
     for _ in range(n):
         pred, u = _predict_and_update(cfg, q_int, statics, dt)
-        delta = torch.stack([((a - q) - du) / 2.
-                             for a, q, du in zip(pred, q_int, u)])
-        y = delta + q_lo
-        t = q_int + y
-        q_int, q_lo = t, y - (t - q_int)
+        q_int, q_lo = _kahan(q_int, q_lo, _combine(pred, q_int, u, True))
+    return q_int, q_lo
+
+
+def with_ghosts(q_int, cfg):
+    """Interior (3, nx, ny) -> ghost-inclusive, ghosts from the edge
+    formulas (``apply_bcs``: x edges, then y edges)."""
+    q = q_int.new_zeros((3, q_int.shape[1] + 2, q_int.shape[2] + 2))
+    q[:, 1:-1, 1:-1] = q_int
+    return apply_bcs(q, cfg)
+
+
+def _interior(arrs):
+    return [a[1:-1, 1:-1] for a in arrs]
+
+
+def step_ghosted_ref(q_g, statics_g, dt, cfg, refill, emit_delta=False):
+    """One step on the ghost-inclusive state ``q_g``: pass d0, ``refill``
+    of the ghosts, pass d1.  Returns the interior new state or
+    increment."""
+    pred, u = _predict_and_update(cfg, q_g, statics_g, float(dt), refill)
+    return _combine(_interior(pred), _interior(q_g), _interior(u),
+                    emit_delta)
+
+
+def fused_step_bc_ref(q_int, statics_g, dt, cfg, emit_delta=False):
+    """Plain torch twin of :func:`fused_step_bc`: the ghosts of
+    ``q_int`` from the edge formulas, refilled by them between the
+    passes (corners take the y fill)."""
+    return step_ghosted_ref(with_ghosts(q_int, cfg), statics_g, dt, cfg,
+                            lambda q: apply_bcs(q, cfg), emit_delta)
+
+
+def comp_steps_bc_ref(q_int, q_lo, statics_g, dt, cfg, n):
+    """Plain torch twin of :func:`comp_steps_bc`: ``n`` compensated steps
+    in the order of ``_kernel_fused_bc_hbm`` (``nch = 6``).  The carry is
+    interior; the ghosts are rebuilt from the compensated interior every
+    step.  Returns ``(q, q_lo)``."""
+    for _ in range(n):
+        delta = fused_step_bc_ref(q_int, statics_g, dt, cfg, emit_delta=True)
+        q_int, q_lo = _kahan(q_int, q_lo, delta)
     return q_int, q_lo
 
 
@@ -225,19 +314,67 @@ def _kernel_params(cfg):
     return iprm, fprm
 
 
-def _check_cuda(q, statics, *more):
-    nch, nx, ny = q.shape
-    for t, shape in ((q, (3, nx, ny)), (statics, (N_STATIC, nx, ny)),
-                     *((m, (3, nx, ny)) for m in more)):
+_CODES = {"P": 0, "D": 1, "N": 2, "G": 3}
+_THIN_CODES = {"Eyring": 1, "Carreau": 2}
+
+
+@functools.lru_cache(maxsize=64)
+def _bc_params(cfg):
+    """Host parameter blocks of the boundary kernels (``csrc/stencil_bc.cu``
+    ``make_bc``).
+
+    ``bprm`` (int32): per edge (xE, xW, yS, yN) and component the ghost
+    code P, D, N, or G for the periodic component of a mixed edge (a
+    given ghost line); then the thinning model (0 none, 1 Eyring, 2
+    Carreau).  ``bfprm`` (float32): ``2 * val`` per edge (the Dirichlet
+    values as ``SolverConfig`` pre-swapped them), ``V - U``, dx, dy, and
+    the thinning parameters: tauE; or mu_inf, lam, a, (N - 1)/a.
+    """
+    bprm = np.zeros(13, dtype=np.int32)
+    bfprm = np.zeros(11, dtype=np.float32)
+    for e in range(4):
+        bc = cfg.bc_edge(e)
+        for c in range(3):
+            kind = ("G" if _edge_mixed(cfg, e) else "P") if bc["P"][c] else \
+                ("D" if bc["D"][c] else "N")
+            bprm[3 * e + c] = _CODES[kind]
+        bfprm[e] = 2. * bc["val"]
+    thin = dict(cfg.thinning or {})
+    model = _THIN_CODES.get(thin.get("name"), 0)
+    bprm[12] = model
+    bfprm[4:7] = [cfg.V - cfg.U, cfg.dx, cfg.dy]
+    if model:
+        k = _with_defaults(_THINNING[thin["name"]],
+                           {a: v for a, v in thin.items() if a != "name"})
+        bfprm[7:11 if model == 2 else 8] = (
+            [k["tauE"]] if model == 1 else
+            [k["mu_inf"], k["lam"], k["a"], (k["N"] - 1.) / k["a"]])
+    return bprm, bfprm
+
+
+def _check_tensors(q, *pairs):
+    """Raise unless each (tensor, shape) pair is float32, contiguous, of
+    that shape and on ``q``'s device."""
+    for t, shape in pairs:
         if t.device != q.device:
             raise ValueError(f"tensors on different devices: {t.device} "
                              f"and {q.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"the CUDA kernels take float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"expected shape {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors")
+
+
+def _check_cuda(q, statics, *more, ghosted=False):
+    """Check the kernel inputs; ``ghosted``: the statics are
+    ghost-inclusive.  Returns (nx, ny)."""
+    _, nx, ny = q.shape
+    g = 2 if ghosted else 0
+    _check_tensors(q, (q, (3, nx, ny)), (statics, (N_STATIC, nx + g, ny + g)),
+                   *((m, (3, nx, ny)) for m in more))
     return nx, ny
 
 
@@ -311,6 +448,80 @@ def comp_steps(q_int, q_lo, statics, dt, cfg, n):
     return src
 
 
+def _bc_gate(cfg):
+    if not pallas_supported(cfg):
+        raise ValueError("the boundary kernel does not cover this "
+                         "configuration (see pallas_supported)")
+
+
+def fused_step_bc(q_int, statics_g, dt, cfg, emit_delta=False):
+    """One fused MacCormack step on D/N, thinning or periodic edges.
+
+    ``q_int``: (3, nx, ny) interior state; ``statics_g``: (8, nx+2, ny+2)
+    from :func:`ghost_statics`.  The ghosts come from the edge formulas,
+    and are refilled from the predictor between the passes.  Returns the
+    new interior state, or with ``emit_delta`` the increment.  CUDA
+    tensors (float32) launch the kernel; CPU tensors run
+    :func:`fused_step_bc_ref`.
+    """
+    if _on_cpu(q_int):
+        return fused_step_bc_ref(q_int, statics_g, dt, cfg, emit_delta)
+    _bc_gate(cfg)
+    nx, ny = _check_cuda(q_int, statics_g, ghosted=True)
+    iprm, fprm = _kernel_params(cfg)
+    bprm, bfprm = _bc_params(cfg)
+    d0, _ = mc_directions(cfg.MC_order)
+    out = torch.empty_like(q_int)
+    lib = _build.load()
+    with torch.cuda.device(q_int.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gf_fused_step_bc(q_int.data_ptr(), statics_g.data_ptr(),
+                                  out.data_ptr(), nx, ny, d0,
+                                  int(emit_delta), iprm.ctypes.data,
+                                  fprm.ctypes.data, bprm.ctypes.data,
+                                  bfprm.ctypes.data, float(dt), stream)
+    _build.check(lib, rc, "gf_fused_step_bc")
+    LAUNCHES["fused_step_bc"] += 1
+    return out
+
+
+def comp_steps_bc(q_int, q_lo, statics_g, dt, cfg, n):
+    """``n`` Kahan-compensated boundary steps on the interior
+    ``(q, q_lo)`` carry, one launch per step (ghosts rebuilt in-kernel
+    from the interior each step).  The inputs are not modified.  Returns
+    ``(q, q_lo)``.  CUDA tensors (float32) launch the kernel; CPU tensors
+    run :func:`comp_steps_bc_ref`.
+    """
+    if _on_cpu(q_int):
+        return comp_steps_bc_ref(q_int, q_lo, statics_g, dt, cfg, n)
+    _bc_gate(cfg)
+    nx, ny = _check_cuda(q_int, statics_g, q_lo, ghosted=True)
+    if n == 0:
+        return q_int, q_lo
+    iprm, fprm = _kernel_params(cfg)
+    bprm, bfprm = _bc_params(cfg)
+    d0, _ = mc_directions(cfg.MC_order)
+    bufs = [torch.empty((6, nx, ny), dtype=q_int.dtype, device=q_int.device)
+            for _ in range(min(n, 2))]
+    src = (q_int, q_lo)
+    lib = _build.load()
+    dt = float(dt)
+    with torch.cuda.device(q_int.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for i in range(n):
+            dst = bufs[i % 2]
+            rc = lib.gf_comp_step_bc(src[0].data_ptr(), src[1].data_ptr(),
+                                     statics_g.data_ptr(), dst[:3].data_ptr(),
+                                     dst[3:].data_ptr(), nx, ny, d0,
+                                     iprm.ctypes.data, fprm.ctypes.data,
+                                     bprm.ctypes.data, bfprm.ctypes.data, dt,
+                                     stream)
+            _build.check(lib, rc, "gf_comp_step_bc")
+            LAUNCHES["comp_step_bc"] += 1
+            src = (dst[:3], dst[3:])
+    return src
+
+
 # ---------------------------------------------------------------------------
 # Drivers on ghost-inclusive arrays
 # ---------------------------------------------------------------------------
@@ -318,21 +529,16 @@ def comp_steps(q_int, q_lo, statics, dt, cfg, n):
 def interior_statics(topo, extra, dtype, device):
     """The 8 static channels on the interior cells, computed once per run
     in ``dtype`` (cast first, then precomputed, as the JAX package does)."""
+    return ghost_statics(topo, extra, dtype, device)[:, 1:-1, 1:-1] \
+        .contiguous()
+
+
+def ghost_statics(topo, extra, dtype, device):
+    """The 8 static channels on the ghost-inclusive grid (the boundary
+    kernels read them at the ghost cells too), in ``dtype``."""
     topo = torch.as_tensor(topo, device=device).to(dtype)
     extra = torch.as_tensor(extra, device=device).to(dtype)
-    return precompute_statics(topo[:3, 1:-1, 1:-1],
-                              extra[:, 1:-1, 1:-1]).contiguous()
-
-
-def _reassemble(q_like, q_int):
-    """Interior (3, nx, ny) -> ghost-inclusive with periodic ghost fill."""
-    out = torch.zeros_like(q_like)
-    out[:, 1:-1, 1:-1] = q_int
-    out[:, 0, :] = out[:, -2, :]
-    out[:, -1, :] = out[:, 1, :]
-    out[:, :, 0] = out[:, :, -2]
-    out[:, :, -1] = out[:, :, 1]
-    return out
+    return precompute_statics(topo[:3], extra).contiguous()
 
 
 def _check_supported(cfg, q, nx, ny):
@@ -344,16 +550,33 @@ def _check_supported(cfg, q, nx, ny):
                          f"got {tuple(q.shape)}")
 
 
+def _kernels(cfg):
+    """(statics, step, compensated steps) of the kernel pair that covers
+    ``cfg``: K1/K2 on the periodic interior, else K3."""
+    if _periodic_kernel_ok(cfg):
+        return interior_statics, fused_step, comp_steps
+    return ghost_statics, fused_step_bc, comp_steps_bc
+
+
 def make_pallas_step(cfg, nx, ny, dtype=torch.float32):
     """``step(q, topo, extra, dt, step_idx) -> q``: one fused step on
-    ghost-inclusive arrays (``make_det_step`` minus the bookkeeping)."""
+    ghost-inclusive arrays (``make_det_step`` minus the bookkeeping).
+    Mixed-edge configurations run one step of
+    :func:`ops.mixed_bc.make_mixed_loop`."""
+    from .mixed_bc import make_mixed_loop, mixed_supported
+    if mixed_supported(cfg, ny, nx):
+        mloop = make_mixed_loop(cfg, nx, ny, dtype=dtype)
+        return lambda q, topo, extra, dt, step_idx: mloop(q, topo, extra,
+                                                           dt, 1)
+    statics, step_fn, _ = _kernels(cfg)
+
     def step(q, topo, extra, dt, step_idx):
         del step_idx
         q = torch.as_tensor(q).to(dtype)
         _check_supported(cfg, q, nx, ny)
-        st = interior_statics(topo, extra, dtype, q.device)
+        st = statics(topo, extra, dtype, q.device)
         q_int = q[:, 1:-1, 1:-1].contiguous()
-        return _reassemble(q, fused_step(q_int, st, dt, cfg))
+        return with_ghosts(step_fn(q_int, st, dt, cfg), cfg)
 
     return step
 
@@ -362,43 +585,54 @@ def make_pallas_loop(cfg, nx, ny, dtype=torch.float32, compensated=False,
                      with_lo=False):
     """``loop(q, topo, extra, dt, n_steps) -> q`` on ghost-inclusive arrays.
 
-    The statics are computed once; between steps q stays in the interior
-    layout.  ``compensated=False`` runs :func:`fused_step` ``n_steps``
-    times.  ``compensated=True`` accumulates the increments with a Kahan
-    carry ``(q, q_lo)``, which float32 runs need near steady state, where
+    Routes as the JAX package does: mixed per-component edges to
+    :func:`ops.mixed_bc.make_mixed_loop`, fully periodic edges without
+    thinning to K1/K2, everything else to K3.  The statics are computed
+    once; between steps q stays in the interior layout.
+    ``compensated=False`` runs the one-step kernel ``n_steps`` times.
+    ``compensated=True`` accumulates the increments with a Kahan carry
+    ``(q, q_lo)``, which float32 runs need near steady state, where
     per-step increments fall below one ulp of the density: full sweeps of
-    :data:`K_MULTI` steps go through :func:`comp_steps`, the remainder
-    through :func:`fused_step` with ``emit_delta`` and the same two-sum in
-    torch.  ``with_lo=True`` (requires ``compensated``) exposes the carry:
-    ``loop(q, topo, extra, dt, n_steps, q_lo) -> (q, q_lo)``.
+    :func:`_k_steps` steps go through the compensated kernel, the
+    remainder through the one-step kernel with ``emit_delta`` and the same
+    two-sum in torch.  ``with_lo=True`` (requires ``compensated``)
+    exposes the carry: ``loop(q, topo, extra, dt, n_steps, q_lo) -> (q,
+    q_lo)``.
     """
     if with_lo and not compensated:
         raise ValueError("with_lo requires compensated=True")
+    from .mixed_bc import make_mixed_loop, mixed_supported
+    if mixed_supported(cfg, ny, nx):
+        if with_lo:
+            raise ValueError("mixed-edge loop does not expose the Kahan "
+                             "carry (no chunked EHL driver on mixed edges)")
+        return make_mixed_loop(cfg, nx, ny, dtype=dtype,
+                               compensated=compensated)
+    statics, step_fn, steps_fn = _kernels(cfg)
+    k = _k_steps(cfg)
 
     def loop(q, topo, extra, dt, n_steps, q_lo=None):
         q = torch.as_tensor(q).to(dtype)
         _check_supported(cfg, q, nx, ny)
-        st = interior_statics(topo, extra, dtype, q.device)
+        st = statics(topo, extra, dtype, q.device)
         q_int = q[:, 1:-1, 1:-1].contiguous()
         dt = float(dt)
 
         if not compensated:
             for _ in range(n_steps):
-                q_int = fused_step(q_int, st, dt, cfg)
-            return _reassemble(q, q_int)
+                q_int = step_fn(q_int, st, dt, cfg)
+            return with_ghosts(q_int, cfg)
 
         lo = (torch.zeros_like(q_int) if q_lo is None
               else torch.as_tensor(q_lo, device=q.device).to(dtype)
               .contiguous())
-        n_sweeps, n_rem = divmod(n_steps, K_MULTI)
-        q_int, lo = comp_steps(q_int, lo, st, dt, cfg, n_sweeps * K_MULTI)
+        n_sweeps, n_rem = divmod(n_steps, k)
+        q_int, lo = steps_fn(q_int, lo, st, dt, cfg, n_sweeps * k)
         for _ in range(n_rem):
-            delta = fused_step(q_int, st, dt, cfg, emit_delta=True)
-            y = delta + lo
-            t = q_int + y
-            q_int, lo = t, y - (t - q_int)
+            q_int, lo = _kahan(q_int, lo, step_fn(q_int, st, dt, cfg,
+                                                   emit_delta=True))
         if with_lo:
-            return _reassemble(q, q_int), lo
-        return _reassemble(q, q_int)
+            return with_ghosts(q_int, cfg), lo
+        return with_ghosts(q_int, cfg)
 
     return loop

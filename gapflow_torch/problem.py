@@ -7,9 +7,11 @@ analytic constitutive laws, rigid topography.  Fields live in a host
 execution paths, as in the JAX package:
 
 - silent runs advance on the device without per-step host I/O: float32 on
-  a CUDA device with a configuration the fused kernels cover takes
-  :meth:`run_compiled_fast` (the CUDA kernels of :mod:`ops.stencil`,
-  residual checked between chunks); anything else takes
+  a CUDA device with a configuration the fused kernels cover (periodic,
+  Dirichlet/Neumann or mixed per-component edges, shear thinning
+  included) takes :meth:`run_compiled_fast` (the CUDA kernels of
+  :mod:`ops.stencil` and :mod:`ops.mixed_bc`, residual checked between
+  chunks); anything else takes
   :meth:`run_compiled` (the plain torch step, reference per-step
   semantics);
 - non-silent runs advance ``write_freq`` steps at a time
@@ -37,6 +39,7 @@ from .fields import FieldCollection
 from .models import Pressure, WallStress, BulkStress
 from .models.eos import eos_sound_velocity
 from .nc import NCWriter
+from .ops.mixed_bc import mixed_supported
 from .ops.stencil import make_pallas_loop, pallas_supported
 from .topography import Topography
 from .utils import handle_signals, get_termination_signals, set_quiet, echo
@@ -431,14 +434,15 @@ class Problem:
         """Advance ``n`` fixed-dt steps through the fused stencil loop.
 
         Float32 by default.  Falls back to :meth:`run_steps` for adaptive
-        dt and for configurations the kernels do not cover.  Tracks no
-        residuals; syncs q afterwards.  ``compensated`` enables Kahan
-        accumulation of the per-step increments, required for small fixed
-        dt in float32 (see ops.stencil.make_pallas_loop).
+        dt and for configurations the kernels do not cover, as the JAX
+        package does.  Tracks no residuals; syncs q afterwards.
+        ``compensated`` enables Kahan accumulation of the per-step
+        increments, required for small fixed dt in float32 (see
+        ops.stencil.make_pallas_loop).
         """
         if self.step is None:
             self._pre_run()
-        if self.numerics["adaptive"] or not pallas_supported(self._solver_cfg):
+        if self.numerics["adaptive"] or not self._kernels_cover():
             self.run_steps(n)
             return
 
@@ -452,12 +456,20 @@ class Problem:
         self.step += n
         self.simtime += n * self.dt
 
+    def _kernels_cover(self):
+        """Whether the fused kernels cover this configuration: uniform
+        edges (periodic or D/N, shear thinning included) or mixed
+        per-component edges."""
+        cfg = self._solver_cfg
+        return pallas_supported(cfg) or mixed_supported(
+            cfg, self.grid["Ny"], self.grid["Nx"])
+
     def _fast_run_eligible(self):
         """The chunked kernel run applies to float32 problems on a CUDA
         device that the fused kernels cover."""
         return (self.dtype == torch.float32
                 and self.device.type == "cuda"
-                and pallas_supported(self._solver_cfg))
+                and self._kernels_cover())
 
     def run_compiled_fast(self, max_steps=None, chunk=1024,
                           compensated=True):

@@ -15,19 +15,11 @@ import torch
 
 from .core.step import apply_bcs
 
-_JOURNAL = """
-options: {{output: data/val, write_freq: 100000, silent: True}}
-grid: {{dx: 4.e-6, dy: 4.e-6, Nx: {nx}, Ny: {ny}}}
-geometry: {{type: journal, CR: 1.e-2, eps: 0.7, U: 0.1, V: 0.}}
-numerics: {{CFL: 0.5, adaptive: 0, tol: 1e-9, dt: 1.5e-10, max_it: 1000000}}
-properties: {{shear: 0.0794, bulk: 0., EOS: DH, P0: 101325.,
-             rho0: 877.7007, C1: 3.5e10, C2: 1.23}}
-"""
-
 
 def journal_problem(nx=256, ny=128, device="cuda"):
     from . import Problem
-    return Problem.from_string(_JOURNAL.format(nx=nx, ny=ny), device=device)
+    return Problem.from_string(journal_yaml(nx, ny, dx=4e-6, dt=1.5e-10,
+                                            tol=1e-9), device=device)
 
 
 def sommerfeld_solution(x, Lx, mu, U, clearance_ratio, eps, P0):
@@ -65,6 +57,53 @@ def sommerfeld_l2(n_steps=20000, nx=256, ny=128, device="cuda"):
     return float(np.linalg.norm(p_ana - p_num) / np.linalg.norm(p_ana))
 
 
+DH = "EOS: DH, P0: 101325., rho0: 877.7007, C1: 3.5e10, C2: 1.23"
+_DN_X = ("xE: ['D', 'N', 'N'], xW: ['D', 'N', 'N'], xE_D: 877.7007, "
+         "xW_D: 877.7007")
+_EYRING = ", thinning: {name: Eyring, tauE: 5.e5}"
+_X_MIXED = ("xE: ['D', 'N', 'P'], xW: ['D', 'N', 'P'], xE_D: 877.7007, "
+            "xW_D: 877.7007")
+_Y_MIXED = "yS: ['P', 'P', 'D'], yN: ['P', 'P', 'D'], yS_D: 0., yN_D: 0."
+
+#: Edge and thinning cases of the boundary kernel K3 (grid keys, property
+#: keys of a journal configuration): D/N x edges; with Barus and Eyring;
+#: fully periodic with Eyring (the periodic seam); D/N on all four edges
+#: with an asymmetric Dirichlet pair on each axis.
+BC_CASES = {
+    "dn_x": (_DN_X, DH),
+    "dn_x_barus_eyring": (_DN_X, DH + ", piezo: {name: Barus, aB: 2.e-9}"
+                          + _EYRING),
+    "periodic_eyring": ("", DH + _EYRING),
+    "dn_all_asymmetric": (
+        "xE: ['D', 'N', 'N'], xW: ['D', 'N', 'N'], xE_D: 900., "
+        "xW_D: 850., yS: ['D', 'N', 'N'], yN: ['D', 'N', 'N'], "
+        "yS_D: 880., yN_D: 860.", DH),
+}
+
+#: Mixed per-component edge specs of the mixed-edge kernel K4 (grid keys):
+#: the cases of the JAX package's tests/test_pallas_mixed.py.
+MIXED_CASES = {
+    "x_mixed": _X_MIXED,
+    "y_mixed_x_periodic": _Y_MIXED,
+    "both_mixed": _X_MIXED + ", " + _Y_MIXED,
+    "y_mixed_x_uniform": _DN_X + ", " + _Y_MIXED,
+}
+
+
+def journal_yaml(nx, ny, grid="", props=DH, dx=2e-5, dt=5e-11, tol=1e-30,
+                 max_it=1000000, out="data/val"):
+    """A silent fixed-dt journal-bearing configuration (Sommerfeld and
+    the kernel checks); ``grid`` adds edge keys, ``props`` sets the
+    properties after shear and bulk viscosity."""
+    grid = ", " + grid if grid else ""
+    return (f"options: {{output: {out}, write_freq: 100000, silent: True}}\n"
+            f"grid: {{dx: {dx}, dy: {dx}, Nx: {nx}, Ny: {ny}{grid}}}\n"
+            "geometry: {type: journal, CR: 1.e-2, eps: 0.7, U: 0.1, V: 0.}\n"
+            f"numerics: {{CFL: 0.5, adaptive: 0, tol: {tol}, dt: {dt}, "
+            f"max_it: {max_it}}}\n"
+            f"properties: {{shear: 0.0794, bulk: 0., {props}}}\n")
+
+
 def perturbed_q(q, seed=0, amp=0.01):
     """Perturbed copy of a ghost-inclusive numpy state: relative density
     noise and a small jx perturbation (numpy generator, so the JAX
@@ -85,6 +124,8 @@ def perturbed_state(problem, seed=0, amp=0.01):
 
 
 def kernel_vs_plain_err(a, b):
-    """Max abs difference scaled by each component's max magnitude of b."""
+    """Max abs difference scaled by each component's max magnitude of b
+    (unscaled for a component of b that is zero everywhere)."""
     scale = b.abs().reshape(b.shape[0], -1).max(dim=1).values
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
     return float(((a - b).abs() / scale[:, None, None]).max())

@@ -1,17 +1,24 @@
 """CUDA kernels of the port against their plain twins, on a GPU.
 
-The kernels have no CPU mode, so these tests skip without a CUDA device.
+K1/K2 (periodic), K3 (D/N edges and shear thinning, per step and
+compensated) and K4 (mixed per-component edges, per step and through its
+loop) on ragged shapes (no multiple of the 8 x 32 tile), and runs that
+take the kernels.  The kernels have no CPU mode, so these tests skip
+without a CUDA device.
 This file imports no JAX; on a machine without it, run
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -m gpu
 """
 
+import numpy as np
 import pytest
 import torch
 
 from gapflow_torch import Problem
+from gapflow_torch.ops import mixed_bc as M
 from gapflow_torch.ops import stencil as S
-from gapflow_torch.validate import kernel_vs_plain_err, perturbed_state
+from gapflow_torch.validate import (BC_CASES, MIXED_CASES, journal_yaml,
+                                    kernel_vs_plain_err, perturbed_state)
 
 SIM = """
 options: {output: data/torch_gpu, write_freq: 1000, silent: True}
@@ -67,7 +74,8 @@ def test_run_takes_the_kernels(cuda_problem):
     S.reset_launches()
     cuda_problem.run()
     assert cuda_problem._route == "run_compiled_fast"
-    assert S.LAUNCHES == {"comp_step": 8, "fused_step": 2}
+    assert S.LAUNCHES == {**S.LAUNCHES, "comp_step": 8, "fused_step": 2}
+    assert sum(S.LAUNCHES.values()) == 10
 
 
 @pytest.mark.gpu
@@ -75,3 +83,104 @@ def test_wrapper_rejects_float64(cuda_problem):
     q, st, dt = _inputs(cuda_problem)
     with pytest.raises(TypeError):
         S.fused_step(q.double(), st.double(), dt, cuda_problem._solver_cfg)
+
+
+# -- boundary kernels ---------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+
+def _problem(grid, props=None, nx=40, ny=72, dt=2e-11, **kw):
+    p = Problem.from_string(
+        journal_yaml(nx, ny, grid, **({"props": props} if props else {}),
+                     dt=dt, out="data/torch_gpu", **kw),
+        device="cuda", dtype=torch.float32)
+    p._pre_run()
+    return p
+
+
+def _ghosted_inputs(p):
+    st = perturbed_state(p, seed=0, amp=0.01)
+    q = st.q[:, 1:-1, 1:-1].contiguous()
+    return q, S.ghost_statics(st.topo, st.extra, torch.float32,
+                              q.device), p.dt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("emit_delta", [False, True])
+@pytest.mark.parametrize("case, ny", [(c, 72) for c in BC_CASES]
+                         + [("dn_x", 1), ("dn_x_barus_eyring", 1)])
+def test_fused_step_bc_matches_twin(cuda, case, ny, emit_delta):
+    """K3 on every edge/thinning case, and on 1D grids (Ny = 1: the
+    y-periodic tile wraps onto itself)."""
+    p = _problem(*BC_CASES[case], ny=ny)
+    cfg = p._solver_cfg
+    q, st, dt = _ghosted_inputs(p)
+    S.reset_launches()
+    out = S.fused_step_bc(q, st, dt, cfg, emit_delta=emit_delta)
+    ref = S.fused_step_bc_ref(q, st, dt, cfg, emit_delta=emit_delta)
+    assert S.LAUNCHES["fused_step_bc"] == 1
+    assert kernel_vs_plain_err(out, ref) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["dn_x", "periodic_eyring",
+                                  "dn_all_asymmetric"])
+def test_comp_steps_bc_matches_twin(cuda, case):
+    """8 compensated K3 steps (the Barus + Eyring state of this small
+    journal goes non-finite within them, twin and kernel alike)."""
+    p = _problem(*BC_CASES[case])
+    cfg = p._solver_cfg
+    q, st, dt = _ghosted_inputs(p)
+    lo = torch.zeros_like(q)
+    qk, lk = S.comp_steps_bc(q, lo, st, dt, cfg, 8)
+    qr, _ = S.comp_steps_bc_ref(q, lo, st, dt, cfg, 8)
+    assert kernel_vs_plain_err(qk, qr) < 1e-5
+    assert torch.isfinite(lk).all()
+    assert torch.equal(lo, torch.zeros_like(q))     # inputs untouched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(MIXED_CASES))
+def test_mixed_step_matches_twin(cuda, case):
+    """K4 for one step (state and increment, the carried ghosts standing in
+    for the band lines) and through 8 compensated loop steps."""
+    p = _problem(MIXED_CASES[case])
+    cfg = p._solver_cfg
+    state = perturbed_state(p, seed=0, amp=1e-3)
+    q_g = state.q.contiguous()
+    st = S.ghost_statics(state.topo, state.extra, torch.float32, q_g.device)
+    gx = q_g[:, [0, -1]].contiguous()
+    gy = q_g[:, :, [0, -1]].transpose(1, 2).contiguous()
+    for emit_delta in (False, True):
+        out = M.mixed_step(q_g, st, gx, gy, p.dt, cfg, emit_delta=emit_delta)
+        ref = M.mixed_step_ref(q_g, st, gx, gy, p.dt, cfg,
+                               emit_delta=emit_delta)
+        assert kernel_vs_plain_err(out, ref) < 1e-5
+    nx, ny = p.grid["Nx"], p.grid["Ny"]
+    args = (state.q, state.topo, state.extra, p.dt, 8)
+    S.reset_launches()
+    qk = M.make_mixed_loop(cfg, nx, ny, compensated=True)(*args)
+    assert S.LAUNCHES["mixed_step"] == 8
+    qr = M.make_mixed_loop(cfg, nx, ny, compensated=True,
+                           step_fn=M.mixed_step_ref)(*args)
+    assert kernel_vs_plain_err(qk, qr) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["dn_x", "dn_x_barus_eyring"])
+def test_dn_run_takes_the_kernels(cuda, case):
+    """A silent D/N (and thinning) run takes run_compiled_fast: 10 steps
+    are full compensated sweeps plus remainder steps of K3."""
+    p = _problem(*BC_CASES[case], max_it=10)
+    S.reset_launches()
+    p.run()
+    assert p._route == "run_compiled_fast" and p.step == 10
+    k = S._k_steps(p._solver_cfg)
+    assert S.LAUNCHES["comp_step_bc"] == 10 // k * k
+    assert S.LAUNCHES["fused_step_bc"] == 10 % k
+    assert sum(S.LAUNCHES.values()) == 10
+    assert np.isfinite(p.q).all() and (p.q[0] > 0).all()

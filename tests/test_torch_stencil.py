@@ -176,10 +176,12 @@ def test_wrappers_use_twins_only_on_cpu(states):
 def test_kernel_gate_and_params():
     import dataclasses
     cfg = _port_cfg()
-    assert S.pallas_supported(cfg)
+    assert S.pallas_supported(cfg) and S._periodic_kernel_ok(cfg)
     assert not S.pallas_supported(dataclasses.replace(cfg, MC_order=0))
-    assert not S.pallas_supported(dataclasses.replace(
-        cfg, thinning=(("name", "Eyring"), ("tauE", 5e5))))
+    # shear thinning is covered by the boundary kernel, not by K1/K2
+    thin = dataclasses.replace(cfg, thinning=(("name", "Eyring"),
+                                              ("tauE", 5e5)))
+    assert S.pallas_supported(thin) and not S._periodic_kernel_ok(thin)
     iprm, fprm = S._kernel_params(cfg)
     assert list(iprm) == [S._EOS_CODES["DH"], 0, 0]
     assert fprm.dtype == np.float32 and fprm.shape == (30,)
