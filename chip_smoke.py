@@ -6,13 +6,17 @@ Builds the CUDA kernels of gapflow_torch from this checkout, checks each
 against its plain torch twin on the card, drives the main paths through
 ``Problem.run()`` (a silent float32 journal bearing on periodic edges, an
 inclined slider on Dirichlet/Neumann edges, a rough contact on four D/N
-edges with shear thinning, a journal on mixed per-component edges),
-checks that the kernels and the plain torch step agree on a run, checks
-the physics against the analytic Sommerfeld solution, and holds each
-kernel against its twin again on the main paths' 1024² inputs before
-timing both.  Any failed phase raises, which exits non-zero
-before the result line.  Without CUDA, or without the package beside it,
-the script fails the same way.
+edges with shear thinning, a journal on mixed per-component edges; the
+GP-surrogate journal with active learning on the mock MD oracle and with
+frozen surrogates, and the GP rough contact on D/N edges, twice), holds
+each GP kernel against its twin on the state and the surrogates its run
+ended with, checks that the kernel routes and the plain torch steps
+agree on a run (deterministic and GP), checks the physics against the
+analytic Sommerfeld solution, and holds each kernel against its twin
+again on the main paths' 1024² inputs before timing both.  Any failed
+phase raises, which exits non-zero before the result line.
+Without CUDA, or without the package beside it, the script fails the
+same way.
 
 Output: one line per measurement, then a JSON line with the kernels,
 the ``nvidia-smi`` name and power limit, and as the last line
@@ -33,6 +37,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 TOL = 1e-5            # component-scaled max error, kernel vs plain twin
+P_TOL = 2e-5          # relative max error of the GP kernel's pressure
 ROUTE_TOL = 1e-4      # scaled max difference, kernel run vs plain-step run
 # phase 3e: the compensated kernel route against the float64 plain step.
 # The f32 plain step itself sits ~5e-4 from that run (its accumulation
@@ -40,8 +45,16 @@ ROUTE_TOL = 1e-4      # scaled max difference, kernel run vs plain-step run
 COMP_ROUTE_TOL = 3e-4
 SOMMERFELD_TOL = 0.02
 THINNING_ENGAGED = 0.9   # phase 3c: the thinning factor must fall below
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM published peaks
-FP32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM published peak
+# float32 adds and multiplies: one per lane and clock, 128 lanes per SM,
+# 132 SMs at the 1.98 GHz boost clock.  The published 67 TFLOP/s counts
+# an FMA as two operations; the kernels build with --fmad=false, so
+# nothing fuses and every operation issues on its own.
+FP32_OPS_PER_S = 128 * 132 * 1.98e9
+# sqrt and exp go through the special-function units: 16 results per
+# clock per SM on compute capability 9.0 (CUDA C++ Programming Guide,
+# arithmetic instruction throughput), 132 SMs at the 1.98 GHz boost clock
+MUFU_OPS_PER_S = 16 * 132 * 1.98e9
 # Floating-point operations per cell and step of the stencil kernels, an
 # upper estimate counted from csrc/stencil_common.cuh: closures ~75 and
 # EOS/piezoviscosity up to ~30 per pass (thinning adds ~30), the one-sided
@@ -114,9 +127,9 @@ def asperity_yaml(n, max_it, tauE=ASPERITY_TAUE):
     return _ASPERITY.format(n=n, max_it=max_it, tauE=tauE)
 
 
-def problem(text):
+def problem(text, dtype=None):
     from gapflow_torch import Problem
-    return Problem.from_string(text, device=DEVICE)
+    return Problem.from_string(text, device=DEVICE, dtype=dtype)
 
 
 def journal(nx, ny, grid="", props=None, dt=5e-11, max_it=1000000):
@@ -339,6 +352,409 @@ def kernel_times(n=N, reps=200, plain_reps=20):
     return errs, times, bounds
 
 
+# bench.py bench_gp_al_e2e, the JAX package's end-to-end GP stage: 1024²
+# journal, DH, pressure and both wall-stress surrogates, lhc init of 4
+# points on the mock oracle, fixed dt 5e-11
+_GP_JOURNAL = """
+options: {{output: data/smoke, write_freq: 1000000, use_tstamp: False,
+          silent: True}}
+grid: {{dx: 2.e-5, dy: 2.e-5, Nx: {n}, Ny: {n}}}
+geometry: {{type: journal, CR: 1.e-2, eps: 0.7, U: 0.1, V: 0.05}}
+numerics: {{CFL: 0.25, adaptive: 0, tol: 1e-30, dt: 5e-11, max_it: {max_it}}}
+properties: {{shear: 0.0794, bulk: 0., EOS: DH, P0: 101325.,
+             rho0: 877.7007, C1: 3.5e10, C2: 1.23}}
+gp:
+    press: {{fix_noise: True, atol: 1.e-2, rtol: 0., obs_stddev: 1.e-3,
+            max_steps: 2, active_learning: {al}}}
+    shear: {{fix_noise: True, atol: 1.e-2, rtol: 0., obs_stddev: 1.e-4,
+            max_steps: 2, active_learning: {al}}}
+db: {{init_size: 4, init_method: lhc, dtool_path: {dtool}{width}}}
+"""
+GP_MAX_IT = 200
+GP_CAP = 64           # phase 5: training points per surrogate
+GP_CHECK_CAPS = (16, 256)
+# phase 3i: the GP journal of 3f at 128², 50 steps with active learning,
+# the kernel route against the plain GP step run in float64.  Its initial
+# samples spread the density by +-20 %, not 3f's +-1 %: from 3f's the
+# pressure GP's kernel saturates (every training point within a small
+# fraction of a length scale), its mean lives in the last bits of the
+# kernel values, and any float32 evaluation of it is rounding (phase 3i
+# prints one step of each).  The limit is about three times the f32
+# plain step's own distance to the float64 run after 50 steps (4.256e-3
+# on the H100); both f32 routes carry the DH EOS's float32 rounding.
+# Against the f32 plain step the kernel route is held to ROUTE_TOL.
+GP_ROUTE_N, GP_ROUTE_STEPS, GP_ROUTE_WIDTH = 128, 50, 0.2
+GP_ROUTE_TOL = 1.2e-2
+
+
+def gp_journal_yaml(n, al=True, max_it=GP_MAX_IT, init_width=None):
+    """The bench_gp_al_e2e journal at n x n with a fresh database
+    directory; ``init_width`` replaces the default relative density
+    spread (0.01) of the initial samples."""
+    import tempfile
+    width = "" if init_width is None else f", init_width: {init_width}"
+    return _GP_JOURNAL.format(n=n, max_it=max_it, al=al, width=width,
+                              dtool=tempfile.mkdtemp(prefix="gp_train_"))
+
+
+def gp_asperity_yaml(n, max_it=GP_MAX_IT):
+    """examples/config/asperity_2d_lj_gp.yaml (BWR, D/N on four edges, LJ
+    units, mock oracle, active learning) widened to n x n, silent, at its
+    dt held fixed, with a fresh database directory.  The asperity depths
+    are drawn from seed 0 (the file draws them unseeded, a new surface
+    in every run)."""
+    import tempfile
+    import yaml
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "config", "asperity_2d_lj_gp.yaml")
+    with open(path) as fh:
+        d = yaml.safe_load(fh)
+    d["options"].update(silent=True, output="data/smoke")
+    d["grid"].update(Nx=n, Ny=n)
+    d["numerics"].update(adaptive=0, max_it=max_it)
+    d["geometry"]["seed"] = 0
+    d["db"]["dtool_path"] = tempfile.mkdtemp(prefix="gp_train_")
+    return yaml.safe_dump(d)
+
+
+def check_p(label, out, ref):
+    """The GP kernel's pressure against its twin's: relative max error."""
+    err = float((out - ref).abs().max() / ref.abs().max())
+    print(f"  {label} pressure: max relative err {err:.3e}")
+    if not err < P_TOL:
+        raise RuntimeError(f"{label}: pressure err {err} >= {P_TOL}")
+    return float((out - ref).abs().max())
+
+
+def gp_check(label, p, cap, steps=0):
+    """One GP kernel step (or ``steps`` frozen steps) against its twin on
+    a synthetic state of ``cap`` points per surrogate, scaled like the
+    Problem's database.  Returns the max abs error."""
+    from gapflow_torch.ops import stencil as S
+    from gapflow_torch.ops import stencil_gp as G
+    from gapflow_torch.validate import gp_kernel_inputs
+    cfg = p._solver_cfg
+    periodic = S._fully_periodic(cfg)
+    q, st, dt, ops, _ = gp_kernel_inputs(p, cap, ghosted=not periodic,
+                                         db_scales=True)
+    if steps:
+        return check(f"{label} gp_steps x{steps}",
+                     G.gp_steps(q, st, dt, cfg, ops, steps),
+                     G.gp_steps_ref(q, st, dt, cfg, ops, steps))
+    if not periodic:
+        return check(f"{label} gp_step_bc", G.gp_step_bc(q, st, dt, cfg, ops),
+                     G.gp_step_bc_ref(q, st, dt, cfg, ops))
+    (qk, pk), (qr, pr) = (G.gp_step(q, st, dt, cfg, ops),
+                          G.gp_step_ref(q, st, dt, cfg, ops))
+    return max(check(f"{label} gp_step", qk, qr),
+               check_p(f"{label} gp_step", pk, pr))
+
+
+def gp_problem(text, dtype=None):
+    """A GP Problem after its pre-run (database initialisation on the mock
+    oracle, BFGS fits, the fields before step 0); prints its time."""
+    import contextlib
+    import io
+    p = problem(text, dtype)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        p._pre_run()
+    torch.cuda.synchronize()
+    print(f"  pre-run (database of {p.database.size}, fits, fields): "
+          f"{time.perf_counter() - t0:.3f} s")
+    return p
+
+
+def drive_gp(label, p, route, expect):
+    """Problem.run() on a GP path with every launch count set to 0 just
+    before it; checks the route, the launches and the state, and prints
+    the run's counters.  Returns (launches, wall)."""
+    import contextlib
+    import io
+    from gapflow_torch.ops import stencil as S
+    from gapflow_torch.ops import stencil_gp as G
+    n = p.grid["Nx"] * p.grid["Ny"]
+    torch.cuda.synchronize()
+    S.reset_launches()
+    G.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        p.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**S.LAUNCHES, **G.LAUNCHES}
+    models = [m for m in (p.pressure, p.wall_stress_xz, p.wall_stress_yz)
+              if m.is_gp_model]
+    train = sum(m.cumtime_train.total_seconds() for m in models)
+    infer = sum(m.cumtime_infer.total_seconds() for m in models)
+    st = p.al_stats
+    print(f"  {label}: route {p._route}, steps {p.step}, launches "
+          f"{ {k: v for k, v in launches.items() if v} }, wall {wall:.3f} s, "
+          f"{n * p.step / wall:.4e} cell-updates/s; acquisitions "
+          f"{st['acquisitions']}, database {p.database.size}, variance "
+          f"checks {st['checks']}, advance {st['advance_s']:.3f} s, host "
+          f"protocol {st['host_s']:.3f} s, GP train {train:.3f} s, GP infer "
+          f"{infer:.3f} s (pre-run included)")
+    if p._route != route:
+        raise RuntimeError(f"{label} took {p._route}")
+    if p.step != p.max_it:
+        raise RuntimeError(f"{label} stopped at step {p.step}")
+    for k, least in expect.items():
+        if launches[k] < least:
+            raise RuntimeError(f"{label} missed a kernel: {launches}")
+    if sum(v for k, v in launches.items() if k not in expect):
+        raise RuntimeError(f"{label} launched other kernels: {launches}")
+    if not (np.isfinite(p.q).all() and (p.q[0] > 0).all()):
+        raise RuntimeError(f"{label}: non-finite q or rho <= 0")
+    return launches, wall
+
+
+def gp_breakdown(label, p, launches, wall, kernel, reps=20):
+    """The run's kernel held against its twin on the run's own final
+    state and operands (the surrogates it trained, conditioned at the
+    capacity it stepped with), then where the wall time went: the kernel
+    (its launches times its time there), the AL variance checks (their
+    count times one check's time on the final state), the host protocol
+    (acquisitions, BFGS, dense variance, buffer rebuild: the run's own
+    clock) and the rest (synchronisation, ghost refills, launch
+    overhead, between-chunk statistics).  Returns the max abs error."""
+    from gapflow_torch.core.al_chunked import (_next_capacity,
+                                               _surrogate_specs, gp_state_of,
+                                               init_gp_states)
+    from gapflow_torch.core.gp_step import _features
+    from gapflow_torch.models import al_jit
+    from gapflow_torch.ops import stencil as S
+    from gapflow_torch.ops import stencil_gp as G
+    from gapflow_torch.validate import gp_dims_use
+    cfg = p._solver_cfg
+    db = p.database
+    dims, use = gp_dims_use(p)
+    # the capacities run_gp_al_chunked and run_steps_gp_fast condition at
+    cap = _next_capacity(db.size + (1 if p._route == "gp_chunked" else 0))
+    gps, _ = init_gp_states(p, cap)
+    models = dict(zip("zxy", (p.pressure, p.wall_stress_xz,
+                              p.wall_stress_yz)))
+    state = gp_state_of(gps, p._tensor(db.X_scale),
+                        {k: p._tensor(models[k].Yscale) for k in gps})
+    ops = G.prep_gp_ops(state, dims, use)
+    qg = p._tensor(p.q)
+    q = qg[:, 1:-1, 1:-1].contiguous()
+    topo = p._tensor(p.topo.full)
+    extra = p._tensor(p.fc.get_real_field("extra").p)
+    periodic = S._fully_periodic(cfg)
+    st = (S.interior_statics if periodic else S.ghost_statics)(
+        topo, extra, torch.float32, q.device)
+    own = f"{label}, the run's own state and surrogates (capacity {cap})"
+    if kernel == "gp_steps":
+        abs_err = check(f"{own}: gp_steps x8",
+                        G.gp_steps(q, st, p.dt, cfg, ops, 8),
+                        G.gp_steps_ref(q, st, p.dt, cfg, ops, 8))
+        k_ms = time_ms(lambda: G.gp_steps(q, st, p.dt, cfg, ops, reps),
+                       1) / reps
+    elif kernel == "gp_step":
+        (qk, pk), (qr, pr) = (G.gp_step(q, st, p.dt, cfg, ops),
+                              G.gp_step_ref(q, st, p.dt, cfg, ops))
+        abs_err = max(check(f"{own}: gp_step", qk, qr),
+                      check_p(f"{own}: gp_step", pk, pr))
+        # the advance discards the pressure: the variant without it
+        k_ms = time_ms(lambda: G.gp_step(q, st, p.dt, cfg, ops,
+                                         need_p=False), reps)
+    else:
+        abs_err = check(f"{own}: gp_step_bc",
+                        G.gp_step_bc(q, st, p.dt, cfg, ops),
+                        G.gp_step_bc_ref(q, st, p.dt, cfg, ops))
+        k_ms = time_ms(lambda: G.gp_step_bc(q, st, p.dt, cfg, ops), reps)
+    t_kernel = launches[kernel] * k_ms / 1e3
+    specs = _surrogate_specs(p)
+    t_check = 0.
+    Xf = (_features(qg, topo, extra).reshape(db.num_features, -1).T
+          / p._tensor(db.X_scale)[None, :])
+    for k, spec in specs.items():
+        t_check += time_ms(lambda: al_jit.predict(
+            gps[k], Xf[:, list(spec.dims)])[1].max(), reps) / len(specs)
+    checks = p.al_stats["checks"]
+    t_var = checks * t_check / 1e3
+    t_host = p.al_stats["host_s"]
+    print(f"  {label} breakdown (capacity {cap}, final "
+          f"state): wall {wall:.3f} s = kernel {t_kernel:.3f} s "
+          f"({launches[kernel]} x {k_ms:.4f} ms) + variance checks "
+          f"{t_var:.3f} s ({checks} x {t_check:.4f} ms) + host protocol "
+          f"{t_host:.3f} s + rest {wall - t_kernel - t_var - t_host:.3f} s; "
+          f"kernel share {t_kernel / wall:.3f}")
+    return abs_err
+
+
+def compare_triggers(a, b):
+    """Prints two AL runs' device triggers ``(step, surrogate, peak /
+    tol, verdict)``; raises at the first one in which they differ."""
+    for label, t in (("first", a), ("second", b)):
+        print(f"  {label} run: {sum(v == 'acquired' for *_, v in t)} "
+              f"acquisitions, {len(t)} triggers: "
+              + " ".join(f"{s}:{k}:{r:.6f}:{v}" for s, k, r, v in t))
+    diff = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+    if diff is not None:
+        raise RuntimeError(f"the runs part at trigger {diff}: "
+                           f"{a[diff] if diff < len(a) else None} vs "
+                           f"{b[diff] if diff < len(b) else None}")
+    print("  the two runs triggered identically")
+
+
+def gp_one_step(width):
+    """One GP step of the 3f journal at GP_ROUTE_N² from its initial
+    state and its initial float64 fits: the kernel route in float32
+    against the plain GP step in float64.  Returns (q scaled max error,
+    p relative max error)."""
+    from gapflow_torch import Problem
+    from gapflow_torch.core.al_chunked import (_next_capacity, gp_state_of,
+                                               init_gp_states)
+    from gapflow_torch.core.gp_step import make_gp_step_core
+    from gapflow_torch.validate import gp_dims_use, kernel_vs_plain_err
+    p = gp_problem(gp_journal_yaml(GP_ROUTE_N, max_it=1, init_width=width),
+                   dtype=torch.float64)
+    db = p.database
+    gps, _ = init_gp_states(p, _next_capacity(db.size))
+    models = dict(zip("zxy", (p.pressure, p.wall_stress_xz,
+                              p.wall_stress_yz)))
+    state = gp_state_of(gps, p._tensor(db.X_scale),
+                        {k: p._tensor(models[k].Yscale) for k in gps})
+    dims, use = gp_dims_use(p)
+    step = make_gp_step_core(p._solver_cfg, dims, db.num_features, use)
+    q, topo, extra = (p._tensor(a) for a in (
+        p.q, p.topo.full, p.fc.get_real_field("extra").p))
+    if step.route(q.float()) != "gp_step":
+        raise RuntimeError("the float32 state does not take the GP kernel")
+    q64, p64 = step(q, topo, extra, p.dt, 0, state)
+    q32, p32 = step(q.float(), topo.float(), extra.float(), p.dt, 0, state)
+    return (kernel_vs_plain_err(q32.double(), q64),
+            float((p32.double() - p64).abs().max() / p64.abs().max()))
+
+
+def gp_route_check():
+    """Phase 3i: the AL route at GP_ROUTE_N² for GP_ROUTE_STEPS steps on
+    the card three times from one state and one database
+    initialisation: on the GP kernels in float32, on the plain GP step in
+    float32 and on the plain GP step in float64.  Holds the kernel route
+    to the float64 run (the same acquisitions, q within GP_ROUTE_TOL
+    scaled) and prints every distance; first, one step of each at 3f's
+    and at this phase's initial density spread."""
+    import contextlib
+    import io
+    from gapflow_torch import Problem
+    from gapflow_torch.core.al_chunked import run_gp_al_chunked
+    from gapflow_torch.ops import stencil as S
+    from gapflow_torch.ops import stencil_gp as G
+    from gapflow_torch.validate import kernel_vs_plain_err
+    for width in (0.01, GP_ROUTE_WIDTH):
+        q_err, p_err = gp_one_step(width)
+        print(f"  one step from the initial fits, initial density spread "
+              f"+-{width:g}: kernel route (f32) vs plain GP step (f64): q "
+              f"{q_err:.3e} scaled, p {p_err:.3e} relative")
+    n, steps = GP_ROUTE_N, GP_ROUTE_STEPS
+    q0, runs = None, {}
+    for label, dtype, kernels in (("kernel route f32", torch.float32, True),
+                                  ("plain step f32", torch.float32, False),
+                                  ("plain step f64", torch.float64, False)):
+        p = Problem.from_string(
+            gp_journal_yaml(n, max_it=steps, init_width=GP_ROUTE_WIDTH),
+            device=DEVICE, dtype=dtype)
+        # one initial state, of float32 values, in all three runs
+        q0 = np.array(p.q, dtype=np.float32) if q0 is None else q0
+        p.q[...] = q0
+        with contextlib.redirect_stdout(io.StringIO()):
+            p._pre_run()
+            torch.cuda.synchronize()
+            S.reset_launches()
+            G.reset_launches()
+            acq = run_gp_al_chunked(p, steps, allow_pallas=kernels)
+            torch.cuda.synchronize()
+        launched = {k: v for k, v in {**S.LAUNCHES, **G.LAUNCHES}.items()
+                    if v}
+        print(f"  {label}: acquisitions {acq}, database "
+              f"{p.database.size}, launches {launched}")
+        if launched != ({"gp_step": steps} if kernels else {}):
+            raise RuntimeError(f"{label}: unexpected launches {launched}")
+        if not (np.isfinite(p.q).all() and (p.q[0] > 0).all()):
+            raise RuntimeError(f"{label}: non-finite q or rho <= 0")
+        runs[label] = (torch.as_tensor(p.q, dtype=torch.float64), acq,
+                       p.database._Xtrain.copy())
+    (qk, ak, Xk), (qp, ap, Xp), (q64, a64, X64) = runs.values()
+    if not ak == ap == a64:
+        raise RuntimeError(f"the routes acquired {ak}, {ap}, {a64} points")
+    scale = np.abs(X64).max(axis=0)
+    scale = np.where(scale > 0, scale, 1.)
+    x_err = [float((np.abs(X - X64) / scale).max()) for X in (Xk, Xp)]
+    d_k64, d_p64 = (kernel_vs_plain_err(q, q64) for q in (qk, qp))
+    d_kp = kernel_vs_plain_err(qk, qp)
+    print(f"  acquired X, scaled max difference to the float64 run: kernel "
+          f"route {x_err[0]:.3e}, f32 plain step {x_err[1]:.3e}")
+    print(f"  q, scaled max difference to the float64 run: kernel route "
+          f"{d_k64:.3e}, f32 plain step {d_p64:.3e}; kernel route vs f32 "
+          f"plain step {d_kp:.3e}")
+    if not (np.isfinite(d_k64) and d_k64 < GP_ROUTE_TOL):
+        raise RuntimeError(f"GP kernel route vs float64 plain step: {d_k64} "
+                           f">= {GP_ROUTE_TOL}")
+    if not (np.isfinite(d_kp) and d_kp < ROUTE_TOL):
+        raise RuntimeError(f"GP kernel route vs float32 plain step: {d_kp} "
+                           f">= {ROUTE_TOL}")
+
+
+def gp_bound(cells, ops):
+    """(bound_ms, bound_by, (HBM ms, FP32 ms, MUFU ms)) of one GP-closed
+    step without the pressure output: q and the 8 statics read and q
+    written once; per cell and pass, for every surrogate and training
+    point 2d + 8 + 2 n_out FP32 operations (the scaled distance, clamp,
+    sqrt, exp, Matern and sums; sqrt and exp among them, at the MUFU rate
+    too) plus 3d for its features, and OPS_PER_CELL for the closures and
+    updates."""
+    nbytes = cells * 4 * (3 + 8 + 3)
+    fp32 = mufu = 0
+    for dims, _, W, _, a in ops.models.values():
+        cap, d = W.shape
+        fp32 += 2 * (cap * (2 * d + 8 + 2 * a.shape[1]) + 3 * d)
+        mufu += 2 * cap * 2
+    parts = (nbytes / HBM_BYTES_PER_S * 1e3,
+             cells * (OPS_PER_CELL + fp32) / FP32_OPS_PER_S * 1e3,
+             cells * mufu / MUFU_OPS_PER_S * 1e3)
+    if parts[0] >= max(parts[1:]):
+        return parts[0], "bytes", parts
+    return max(parts[1:]), "operations", parts
+
+
+def gp_kernel_times(pj, pa, n=N, reps=20, plain_reps=3):
+    """The three GP kernels at n x n on the main paths' final states (the
+    journal of phase 3f for gp_step and gp_steps, the asperity contact of
+    3h for gp_step_bc) with a synthetic state of GP_CAP points for each of
+    the three surrogates, scaled like the run's database: each held
+    against its twin, then timed (gp_step as the AL advance launches it,
+    without the pressure output).  Returns errors, times and bounds as
+    kernel_times does."""
+    from gapflow_torch.ops import stencil_gp as G
+    from gapflow_torch.validate import gp_kernel_inputs
+    errs = {"gp_step": gp_check("K5 journal", pj, GP_CAP),
+            "gp_steps": gp_check("K7 journal", pj, GP_CAP, steps=8),
+            "gp_step_bc": gp_check("K6 asperity", pa, GP_CAP)}
+    times, bounds = {}, {}
+    cfg = pj._solver_cfg
+    q, st, dt, ops, _ = gp_kernel_inputs(pj, GP_CAP, db_scales=True)
+    times["gp_step"] = (
+        time_ms(lambda: G.gp_step(q, st, dt, cfg, ops, need_p=False), reps),
+        time_ms(lambda: G.gp_step_ref(q, st, dt, cfg, ops, need_p=False),
+                plain_reps))
+    times["gp_steps"] = (
+        time_ms(lambda: G.gp_steps(q, st, dt, cfg, ops, reps), 1) / reps,
+        time_ms(lambda: G.gp_steps_ref(q, st, dt, cfg, ops, 1), plain_reps))
+    bounds["gp_step"] = bounds["gp_steps"] = gp_bound(n * n, ops)
+    cfg = pa._solver_cfg
+    q, st, dt, ops, _ = gp_kernel_inputs(pa, GP_CAP, ghosted=True,
+                                         db_scales=True)
+    times["gp_step_bc"] = (
+        time_ms(lambda: G.gp_step_bc(q, st, dt, cfg, ops), reps),
+        time_ms(lambda: G.gp_step_bc_ref(q, st, dt, cfg, ops), plain_reps))
+    bounds["gp_step_bc"] = gp_bound(n * n, ops)
+    return errs, times, bounds
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -442,6 +858,38 @@ def main():
         err["mixed_step"] = max(err["mixed_step"], check(
             f"K4 {case} compensated loop x8 (ghosts included)", *loops))
 
+    print(f"phase 2g: GP kernels vs plain twins ({N_CHECK} x {N_CHECK} "
+          f"journal, synthetic surrogates, capacities {GP_CHECK_CAPS})")
+    from gapflow_torch.validate import GP_CASES, gp_kernel_parity, gp_yaml
+    err["gp_step"] = err["gp_step_bc"] = err["gp_steps"] = 0.
+    edges = {"periodic": "", "dn_x": BC_CASES["dn_x"][0],
+             "dn_all_asymmetric": BC_CASES["dn_all_asymmetric"][0],
+             "dn_y": "yS: ['D', 'N', 'N'], yN: ['D', 'N', 'N'], "
+                     "yS_D: 877.7007, yN_D: 877.7007"}
+    import tempfile
+    for case in ("pressure", "all"):
+        for edge, grid in edges.items():
+            if edge != "periodic" and case != "all":
+                continue
+            pg = gp_problem(gp_yaml(N_CHECK, N_CHECK, gp=GP_CASES[case],
+                                    grid=grid, out="data/smoke",
+                                    dtool_path=tempfile.mkdtemp()))
+            key = "gp_step" if edge == "periodic" else "gp_step_bc"
+            for cap in GP_CHECK_CAPS:
+                err[key] = max(err[key], gp_check(
+                    f"{case} {edge} cap {cap}", pg, cap))
+            # the kernel against the plain GP step (Gram-form distance):
+            # the JAX package's bar for its kernel (validate.py:372)
+            q_err, p_err = gp_kernel_parity(pg, 16)
+            print(f"  {case} {edge} cap 16, kernel vs plain GP step: q "
+                  f"{q_err:.3e} scaled, p {p_err} relative")
+            if not (q_err < P_TOL and (p_err is None or p_err < P_TOL)):
+                raise RuntimeError(f"{case} {edge}: kernel vs plain GP step "
+                                   f"{q_err}, {p_err} >= {P_TOL}")
+            if edge == "periodic" and case == "all":
+                err["gp_steps"] = gp_check("all periodic cap 16", pg, 16,
+                                           steps=8)
+
     # -- phase 3: the main paths ------------------------------------------
     n, max_it = N, MAX_IT
     print(f"phase 3: Problem.run(), silent float32 journal {n} x {n}, "
@@ -527,6 +975,46 @@ def main():
         raise RuntimeError(f"compensated route vs float64 plain step: "
                            f"{to64[True]} >= {COMP_ROUTE_TOL}")
 
+    print(f"phase 3f: Problem.run(), silent float32 GP journal {n} x {n} "
+          f"(bench.py bench_gp_al_e2e: three surrogates, active learning, "
+          f"mock oracle), max_it {GP_MAX_IT}")
+    pj = gp_problem(gp_journal_yaml(n))
+    lg, wall = drive_gp("GP journal, active learning", pj, "gp_chunked",
+                        {"gp_step": 1})
+    launches["gp_step"] = lg["gp_step"]
+    err["gp_step"] = max(err["gp_step"],
+                         gp_breakdown("3f", pj, lg, wall, "gp_step"))
+
+    print(f"phase 3g: Problem.run(), the same with active_learning: False "
+          f"(frozen surrogates), max_it {GP_MAX_IT}")
+    pf = gp_problem(gp_journal_yaml(n, al=False))
+    lg, wall = drive_gp("GP journal, frozen", pf, "gp_fast",
+                        {"gp_steps": GP_MAX_IT})
+    launches["gp_steps"] = lg["gp_steps"]
+    err["gp_steps"] = max(err["gp_steps"],
+                          gp_breakdown("3g", pf, lg, wall, "gp_steps"))
+
+    print(f"phase 3h: Problem.run(), silent float32 GP asperity contact {n} "
+          f"x {n} (examples/config/asperity_2d_lj_gp.yaml: BWR, D/N on four "
+          f"edges, active learning), fixed dt, max_it {GP_MAX_IT}")
+    pa = gp_problem(gp_asperity_yaml(n))
+    lg, wall = drive_gp("GP asperity, active learning", pa, "gp_chunked",
+                        {"gp_step_bc": 1})
+    launches["gp_step_bc"] = lg["gp_step_bc"]
+    err["gp_step_bc"] = max(err["gp_step_bc"],
+                            gp_breakdown("3h", pa, lg, wall, "gp_step_bc"))
+    print("phase 3h, again: the same configuration in a new Problem")
+    pa2 = gp_problem(gp_asperity_yaml(n))
+    drive_gp("GP asperity, active learning, again", pa2, "gp_chunked",
+             {"gp_step_bc": 1})
+    compare_triggers(pa.al_stats["triggers"], pa2.al_stats["triggers"])
+
+    print(f"phase 3i: route agreement, the GP journal of 3f at "
+          f"{GP_ROUTE_N} x {GP_ROUTE_N}, initial density spread "
+          f"+-{GP_ROUTE_WIDTH:g}, {GP_ROUTE_STEPS} steps with active "
+          f"learning: kernel route vs the plain GP step")
+    gp_route_check()
+
     # -- phase 4: physics ---------------------------------------------------
     from gapflow_torch.validate import sommerfeld_l2
     t0 = time.perf_counter()
@@ -540,22 +1028,37 @@ def main():
     print(f"phase 5: kernel vs plain twin on the main paths' inputs, {n} x "
           f"{n}, amplitude 0.01")
     errs, times, bounds = kernel_times(n)
+    print(f"phase 5: GP kernels vs plain twins on the GP paths' final "
+          f"states, {n} x {n}, {GP_CAP} points x 3 surrogates")
+    gerrs, gtimes, gbounds = gp_kernel_times(pj, pa, n)
+    errs.update(gerrs)
+    times.update(gtimes)
+    bounds.update(gbounds)
     for k, e in errs.items():
         err[k] = max(err[k], e)
     for k, (ms, plain) in times.items():
+        parts = ""
+        if len(bounds[k]) > 2:
+            parts = (" = max(HBM {:.4f}, FP32 {:.4f}, MUFU {:.4f})"
+                     .format(*bounds[k][2]))
         print(f"phase 5: {k} {n}x{n}: kernel {ms:.4f} ms/step, plain twin "
               f"{plain:.4f} ms/step, bound {bounds[k][0]:.4f} ms "
-              f"({bounds[k][1]})")
+              f"({bounds[k][1]}){parts}")
 
     sources = {k: "gapflow_torch/csrc/stencil.cu"
                for k in ("fused_step", "comp_step")}
     sources.update({k: "gapflow_torch/csrc/stencil_bc.cu"
                     for k in ("fused_step_bc", "comp_step_bc", "mixed_step")})
+    sources.update({k: "gapflow_torch/csrc/stencil_gp.cu"
+                    for k in ("gp_step", "gp_step_bc", "gp_steps")})
     replaces = {"fused_step": "gapflow_tpu/ops/stencil.py:897",
                 "comp_step": "gapflow_tpu/ops/stencil.py:681",
                 "fused_step_bc": "gapflow_tpu/ops/stencil.py:370",
                 "comp_step_bc": "gapflow_tpu/ops/stencil.py:759",
-                "mixed_step": "gapflow_tpu/ops/mixed_bc.py:246"}
+                "mixed_step": "gapflow_tpu/ops/mixed_bc.py:246",
+                "gp_step": "gapflow_tpu/ops/stencil_gp.py:269",
+                "gp_step_bc": "gapflow_tpu/ops/stencil_gp.py:570",
+                "gp_steps": "gapflow_tpu/ops/stencil_gp.py:728"}
     # no single PyTorch call computes a MacCormack step: library_ms null
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k],

@@ -2,14 +2,16 @@
 
 The PyTorch counterpart of :mod:`gapflow_tpu`: a 2D finite-volume
 MacCormack solver for the compressible, gap-averaged Navier-Stokes
-(lubrication) equations, closed by analytic constitutive laws.  Module
-names follow the JAX package, so each module's counterpart is found under
-the same name there.
+(lubrication) equations, closed by analytic constitutive laws or by
+Gaussian-process surrogates trained from (mock) MD data through active
+learning.  Module names follow the JAX package, so each module's
+counterpart is found under the same name there.
 
-This package covers the deterministic path: YAML configuration,
-topography, the plain torch step (:mod:`gapflow_torch.core.step`) and, on
-an NVIDIA Hopper GPU, the fused MacCormack stencil kernels of
-:mod:`gapflow_torch.ops.stencil` (CUDA C++ in ``csrc/stencil.cu``).
+This package covers the deterministic path (YAML configuration,
+topography, the plain torch step :mod:`gapflow_torch.core.step`) and the
+silent fixed-dt GP path (:mod:`gapflow_torch.db`, :mod:`.models.gp`,
+:mod:`.core.al_chunked`); on an NVIDIA Hopper GPU they run through the
+CUDA kernels of :mod:`gapflow_torch.ops` (``csrc/*.cu``).
 
 Precision: float64 by default; set the environment variable
 ``GAPFLOW_X64=0`` before import to run in float32 (the production setting
@@ -27,4 +29,5 @@ DTYPE = torch.float32 if os.environ.get("GAPFLOW_X64", "1") == "0" \
 
 __version__ = "0.1.0"
 
+from .db import Database  # noqa: F401, E402
 from .problem import Problem  # noqa: F401, E402

@@ -25,8 +25,9 @@ BUILD_DIR = _PKG.parent / "build" / "gapflow_torch"
 # --fmad=false: no contraction of a*b + c into one rounding, so the kernel
 # rounds op for op like its plain torch twin; differences between the two
 # then stay at the ulp level even where float32 evaluation of a model is
-# ill-conditioned (the BWR polynomial, DH's r - 1).  The kernels are bound
-# by memory bytes, not by arithmetic.
+# ill-conditioned (the BWR polynomial, DH's r - 1).  The stencil kernels
+# are bound by memory bytes, the GP kernels by sqrt and exp, neither by
+# the separate multiply and add.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC"]
 
@@ -48,6 +49,14 @@ _SIGNATURES = {
     # dt, stream
     "gf_mixed_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                       _F, _P],
+    # q, st, out, p_out, nx, ny, st_ghosted, d0, iprm, fprm, bprm, bfprm,
+    # meta, coef, data, dt, stream
+    "gf_gp_step": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                   _P, _F, _P],
+    # q, st, buf0, buf1, nx, ny, n, d0, iprm, fprm, bprm, bfprm, meta,
+    # coef, data, dt, stream
+    "gf_gp_steps": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                    _P, _F, _P],
 }
 
 

@@ -1,10 +1,11 @@
 """The Problem: configuration, time loop, I/O and model orchestration.
 
-Counterpart of :class:`gapflow_tpu.problem.Problem`, deterministic subset:
-analytic constitutive laws, rigid topography.  Fields live in a host
+Counterpart of :class:`gapflow_tpu.problem.Problem`: analytic
+constitutive laws or GP surrogates on the mock MD oracle, rigid
+topography.  Fields live in a host
 :class:`~gapflow_torch.fields.FieldCollection` of numpy arrays
-(float64); the solver runs on ``device`` in ``dtype``.  Two
-execution paths, as in the JAX package:
+(float64); the solver runs on ``device`` in ``dtype``.  Deterministic
+problems take one of two execution paths, as in the JAX package:
 
 - silent runs advance on the device without per-step host I/O: float32 on
   a CUDA device with a configuration the fused kernels cover (periodic,
@@ -17,9 +18,16 @@ execution paths, as in the JAX package:
 - non-silent runs advance ``write_freq`` steps at a time
   (:meth:`run_steps`) and write a frame after each chunk.
 
-Not ported yet (ROADMAP queue 1): GP surrogates and active learning
-(slice 8), elastic deformation (slice 9).  Configurations that need them
-raise ``NotImplementedError``.
+Silent fixed-dt GP problems advance in device chunks
+(:meth:`_run_device_multiscale`): with active learning on any surrogate
+through :meth:`run_steps_gp_chunked` (host acquisition protocol between
+device advances), with frozen surrogates through
+:meth:`run_steps_gp_fast`; float32 CUDA states take the GP kernels of
+:mod:`ops.stencil_gp`.
+
+Not ported yet (ROADMAP queue 1): non-silent GP runs (the per-step host
+loop), adaptive dt with GP surrogates, elastic deformation, a real MD
+engine.  Configurations that need them raise ``NotImplementedError``.
 """
 
 import os
@@ -32,15 +40,22 @@ import torch
 from . import DTYPE, __version__
 from .config import (read_yaml_input, read_yaml_string, write_yaml,
                      create_output_directory, history_to_csv)
+from .core.al_chunked import (_next_capacity, _surrogate_specs, gp_state_of,
+                              init_gp_states, new_stats, run_gp_al_chunked)
+from .core.gp_step import make_gp_step_core
 from .core.state import SimState
 from .core.step import (SolverConfig, make_det_step, make_run_loop,
                         make_trajectory)
+from .db import Database
 from .fields import FieldCollection
+from .md import Mock
 from .models import Pressure, WallStress, BulkStress
 from .models.eos import eos_sound_velocity
 from .nc import NCWriter
 from .ops.mixed_bc import mixed_supported
-from .ops.stencil import make_pallas_loop, pallas_supported
+from .ops.stencil import (K_MULTI, interior_statics, make_pallas_loop,
+                          pallas_supported, with_ghosts)
+from .ops.stencil_gp import gp_step, gp_steps, prep_gp_ops
 from .topography import Topography
 from .utils import handle_signals, get_termination_signals, set_quiet, echo
 
@@ -62,10 +77,13 @@ class Problem:
     Use :meth:`from_yaml` / :meth:`from_string` to construct from sanitized
     YAML input.  ``device`` is where the solver runs (default ``cuda``);
     ``dtype`` its float type (default :data:`gapflow_torch.DTYPE`).
+    ``gp`` (the sanitized ``gp:`` section) and ``database`` (a
+    :class:`~gapflow_torch.db.Database`) make the pressure and wall
+    stresses GP surrogates.
     """
 
     def __init__(self, options, grid, numerics, prop, geo, device="cuda",
-                 dtype=None):
+                 dtype=None, gp=None, database=None):
         self.device = resolve_device(device)
         self.dtype = DTYPE if dtype is None else dtype
 
@@ -93,11 +111,20 @@ class Problem:
         fc.register_real_field("pressure")
         fc.register_real_field("topography", (4,))
 
+        gp = gp or {}
+        self.has_gp_model = bool(gp)
+        self.database = database
+        self.al_stats = new_stats()
         model_args = (fc, prop, geo, self.device, self.dtype)
-        self.pressure = Pressure(*model_args)
+        self.pressure = Pressure(*model_args, data=database,
+                                 gp=gp.get("press") if gp.get("press_gp")
+                                 else None)
         self.bulk_stress = BulkStress(*model_args)
-        self.wall_stress_xz = WallStress(*model_args, direction="x")
-        self.wall_stress_yz = WallStress(*model_args, direction="y")
+        shear = gp.get("shear") if gp.get("shear_gp") else None
+        self.wall_stress_xz = WallStress(*model_args, direction="x",
+                                         data=database, gp=shear)
+        self.wall_stress_yz = WallStress(*model_args, direction="y",
+                                         data=database, gp=shear)
 
         self.topo = Topography(fc, grid, geo, prop)
 
@@ -139,12 +166,26 @@ class Problem:
 
     @staticmethod
     def _check_ported(input_dict):
-        missing = [k for k in ("gp", "db", "md") if input_dict.get(k)]
-        if missing:
+        """Refuse what the port does not run yet, naming its ROADMAP item
+        (queue 1), rather than run it another way."""
+        def refuse(what, item):
             raise NotImplementedError(
-                f"sections {missing} (GP surrogates, MD database) are not "
-                "ported to gapflow_torch yet (ROADMAP queue 1, slice 8); "
-                "run them with gapflow_tpu")
+                f"{what} is not ported to gapflow_torch yet (ROADMAP queue "
+                f"1, item {item}); run it with gapflow_tpu")
+
+        if input_dict.get("md"):
+            refuse("a real MD engine (md: section)", "10")
+        if not (input_dict.get("gp") or input_dict.get("db")):
+            return
+        if not input_dict["options"]["silent"]:
+            refuse("a non-silent GP run (the per-step host loop)",
+                   "8, deferred")
+        if input_dict["numerics"]["adaptive"]:
+            refuse("adaptive dt with GP surrogates", "9")
+        if input_dict["numerics"].get("gp_fast_pred"):
+            refuse("numerics: gp_fast_pred", "8, deferred")
+        if input_dict["properties"].get("elastic", {}).get("enabled"):
+            refuse("an elastic GP problem", "9")
 
     @classmethod
     def from_yaml(cls, fname, device="cuda", dtype=None):
@@ -159,11 +200,19 @@ class Problem:
         """Build a Problem from a YAML string."""
         return cls._from_dict(read_yaml_string(ymlstring), device, dtype)
 
+    @staticmethod
+    def _get_optional_input(input_dict):
+        gp, db = input_dict.get("gp"), input_dict.get("db")
+        if db is None:
+            return {"gp": gp, "database": None}
+        md = Mock(input_dict["properties"], input_dict["geometry"], gp)
+        return {"gp": gp, "database": Database(md, db)}
+
     @classmethod
     def _from_dict(cls, input_dict, device, dtype):
         cls._check_ported(input_dict)
         return cls(*cls._get_mandatory_input(input_dict), device=device,
-                   dtype=dtype)
+                   dtype=dtype, **cls._get_optional_input(input_dict))
 
     # ------------------------------------------------------------------
     # Field accessors / scalars (host arrays)
@@ -251,7 +300,9 @@ class Problem:
         # per-step semantics.
         if self.options["silent"]:
             self._tic = datetime.now()
-            if self._fast_run_eligible():
+            if self.has_gp_model:
+                self._run_device_multiscale()
+            elif self._fast_run_eligible():
                 self._route = "run_compiled_fast"
                 self.run_compiled_fast()
             else:
@@ -288,18 +339,28 @@ class Problem:
             self._post_run()
 
     def _refresh_det_fields(self):
-        """Recompute pressure/stress output fields from the current q."""
-        self.pressure.update()
-        self.wall_stress_xz.update()
-        self.wall_stress_yz.update()
+        """Recompute pressure/stress output fields (GP variances included)
+        from the current q."""
+        self.pressure.update(predictor=False, compute_var=True)
+        self.wall_stress_xz.update(predictor=False, compute_var=True)
+        self.wall_stress_yz.update(predictor=False, compute_var=True)
         self.bulk_stress.update()
 
     def _pre_run(self):
+        for m in self._surrogates():
+            m.init_database(self.grid["dim"])
+        for m in self._surrogates():
+            m.init()
+
         self.step = 0
         self.simtime = 0.
         self.residual = 1.
         self._stop = False
         self.residual_buffer = deque([self.residual], 5)
+
+        # GP-driven problems need pressure/stress fields before step 0
+        if self.has_gp_model:
+            self._refresh_det_fields()
 
         if self.numerics["adaptive"]:
             self.dt = self.numerics["CFL"] * self.dt_crit
@@ -329,6 +390,12 @@ class Problem:
         echo(33 * "=")
         echo("Total walltime   : ", str(walltime).split(".")[0])
         echo(f"({speed:.2f} steps/s)")
+        for model, tag in zip(self._surrogates(), ("zz", "xz", "yz")):
+            if model.is_gp_model:
+                echo(f" - GP train ({tag}) : ",
+                     str(model.cumtime_train).split(".")[0])
+                echo(f" - GP infer ({tag}) : ",
+                     str(model.cumtime_infer).split(".")[0])
         echo(33 * "=")
 
         if not self.options["silent"]:
@@ -564,6 +631,174 @@ class Problem:
         self._sync_state(state)
         self._refresh_det_fields()
         return state
+
+    # ------------------------------------------------------------------
+    # GP-surrogate paths (silent, fixed dt, non-elastic)
+    # ------------------------------------------------------------------
+
+    def _surrogates(self):
+        return (self.pressure, self.wall_stress_xz, self.wall_stress_yz)
+
+    def _route_uses_al(self):
+        """True when any surrogate runs active learning (the chunked-AL
+        route)."""
+        return any(s.use_al for s in _surrogate_specs(self).values())
+
+    def _run_device_multiscale(self):
+        """Silent fixed-dt GP convergence run in device chunks.
+
+        Active learning on any surrogate takes :meth:`run_steps_gp_chunked`
+        (host acquisition protocol between device advances), frozen
+        surrogates :meth:`run_steps_gp_fast`; the route is recorded in
+        ``self._route``.  Residual convergence and the rollback on NaN or
+        negative density are evaluated between chunks, as in
+        :meth:`run_compiled_fast`.
+        """
+        self._route = ("gp_chunked" if self._route_uses_al()
+                       else "gp_fast")
+        chunk = int(max(1, min(self.options["write_freq"], 512)))
+        dmin = min(self.grid["dx"], self.grid["dy"])
+        ekin_old = self.kinetic_energy
+        q_prev = self.q.copy()
+
+        while self.step < self.max_it and not self._stop:
+            n = int(min(chunk, self.max_it - self.step))
+            if self._route == "gp_chunked":
+                self.run_steps_gp_chunked(n)
+            else:
+                self.run_steps_gp_fast(n)
+
+            if not self.q_is_valid:
+                print("Invalid state (NaN or negative density) detected; "
+                      "stopped at the last valid chunk.")
+                self.q[...] = q_prev
+                self._refresh_det_fields()
+                self._stop = True
+                break
+            q_prev = self.q.copy()
+
+            ekin = self.kinetic_energy
+            cfl = self.dt * (self.v_max + self.pressure.v_sound) / dmin
+            self.residual = (abs(ekin - ekin_old)
+                             / max(ekin_old, 1e-300) / cfl / n)
+            self.residual_buffer.append(self.residual)
+            ekin_old = ekin
+            self.kinetic_energy_old = ekin
+
+            handle_signals(self._receive_signal)
+            if self.converged and len(self.residual_buffer) == 5:
+                break
+
+    def run_steps_gp_chunked(self, n, capacity=None, n_candidates=None):
+        """Advance ``n`` fixed-dt GP-surrogate steps with host-protocol
+        active learning and device stepping (:mod:`core.al_chunked`).
+
+        Between acquisitions the fluid advances on the device (the GP
+        kernels for a float32 CUDA state the kernels cover); each
+        acquisition is a round trip in which the host runs the reference
+        protocol: MD oracle through ``Database.add_data``
+        (renormalization included) and scipy-BFGS retraining.  Frozen
+        surrogates delegate to :meth:`run_steps_gp_fast`.  Returns the
+        number of acquisitions.
+        """
+        if not self.has_gp_model:
+            raise RuntimeError("run_steps_gp_chunked requires GP surrogates")
+        if self.step is None:
+            self._pre_run()
+        if not self._route_uses_al():
+            self.run_steps_gp_fast(n, capacity=capacity)
+            return 0
+        return run_gp_al_chunked(self, n, capacity=capacity,
+                                 n_candidates=n_candidates)
+
+    def run_steps_gp_device(self, n, capacity=64, refit_steps=40):
+        """The JAX package's experimental all-device AL loop
+        (``core/al_loop.py``) is not ported (ROADMAP queue 1, item 8);
+        :meth:`run_steps_gp_chunked` is the AL path."""
+        raise NotImplementedError(
+            "run_steps_gp_device is not ported to gapflow_torch (ROADMAP "
+            "queue 1, item 8, deferred); use run_steps_gp_chunked")
+
+    def run_steps_gp_fast(self, n, capacity=None, chunk=512):
+        """Advance ``n`` GP-closed steps with frozen surrogates.
+
+        The cached (hyperparameters, alpha) close every step and nothing
+        retrains, as the reference's predict() with active learning off
+        and an unchanged database.  A float32 CUDA state on periodic edges
+        advances through :func:`ops.stencil_gp.gp_steps` in sweeps of a
+        multiple of ``K_MULTI`` steps (at most ``chunk`` per call), the
+        remainder through :func:`~ops.stencil_gp.gp_step`; D/N edges take
+        the boundary GP kernel per step, other states the plain GP step.
+        Syncs q and the constitutive fields afterwards.
+        """
+        if not self.has_gp_model:
+            raise RuntimeError("run_steps_gp_fast requires GP surrogates")
+        if self.step is None:
+            self._pre_run()
+        gp_state, dims3, use3, nf = self._frozen_gp_state(capacity)
+        cfg = self._solver_cfg
+        step_core = make_gp_step_core(cfg, dims3, nf, use3, need_p=False)
+
+        q = self._tensor(self.q)
+        topo = self._tensor(self.topo.full)
+        extra = self._tensor(self.fc.get_real_field("extra").p)
+        dt = float(self.dt)
+
+        if step_core.route(q) == "gp_step":
+            ops = prep_gp_ops(gp_state, dims3, use3)
+            st = interior_statics(topo, extra, q.dtype, q.device)
+            q_int = q[:, 1:-1, 1:-1].contiguous()
+            nk = n // K_MULTI * K_MULTI
+            ck = chunk // K_MULTI * K_MULTI or K_MULTI
+            done = 0
+            while done < nk:
+                c = min(ck, nk - done)
+                q_int = gp_steps(q_int, st, dt, cfg, ops, c)
+                done += c
+            for _ in range(n - nk):
+                q_int, _ = gp_step(q_int, st, dt, cfg, ops, need_p=False)
+            q = with_ghosts(q_int, cfg)
+        else:
+            stepper = step_core.prepare(q, topo, extra, gp_state)
+            s = stepper.inner(q)
+            for i in range(n):
+                s, _ = stepper.step(s, dt, self.step + i)
+            q = stepper.full(s)
+
+        self._sync_gp_fast_tail(q, n)
+
+    def _frozen_gp_state(self, capacity=None):
+        """Padded frozen-surrogate buffers (``core.gp_step`` layout) in the
+        Problem's dtype on its device, plus the static dims.  Requires
+        active learning off on every surrogate.  Returns ``(gp_state,
+        dims3, use3, num_features)``."""
+        specs = _surrogate_specs(self)
+        if any(s.use_al for s in specs.values()):
+            raise RuntimeError(
+                "active learning is on; run_steps_gp_chunked runs the "
+                "host acquisition protocol with device stepping")
+        db = self.database
+        gps, _ = init_gp_states(self, capacity or _next_capacity(db.size))
+        models = dict(zip(("z", "x", "y"), self._surrogates()))
+        gp_state = gp_state_of(
+            gps, self._tensor(db.X_scale),
+            {k: self._tensor(models[k].Yscale) for k in gps})
+        dims3 = tuple(tuple(m.active_dims) if m.is_gp_model else None
+                      for m in self._surrogates())
+        use3 = tuple(m.is_gp_model for m in self._surrogates())
+        return gp_state, dims3, use3, db.num_features
+
+    def _sync_gp_fast_tail(self, q, n):
+        """Host sync after a frozen-GP run: write q back and refresh the
+        constitutive fields through the host predict path (cached dense
+        conditioning)."""
+        self.q[...] = q.cpu().numpy()
+        for m in self._surrogates():
+            m.update(predictor=False, compute_var=False)
+            m._step += n
+        self.bulk_stress.update()
+        self.step += n
+        self.simtime += n * self.dt
 
     # ------------------------------------------------------------------
     # I/O

@@ -7,7 +7,10 @@ Counterpart of the deterministic checks of :mod:`gapflow_tpu.validate`:
   pressure (rel-L2 < 0.02 is the acceptance bar);
 - :func:`perturbed_state`: a non-inert journal state for comparing a
   kernel with its plain twin (the unperturbed float32 state is frozen:
-  its per-step increments fall below one ulp of the density).
+  its per-step increments fall below one ulp of the density);
+- :func:`synthetic_gp_state` and :func:`gp_kernel_parity`: a
+  well-conditioned padded GP state, and the GP kernel against the plain
+  GP step on it.
 """
 
 import numpy as np
@@ -129,3 +132,141 @@ def kernel_vs_plain_err(a, b):
     scale = b.abs().reshape(b.shape[0], -1).max(dim=1).values
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
     return float(((a - b).abs() / scale[:, None, None]).max())
+
+
+#: GP configurations of the GP kernel checks: (gp: section, db: section)
+#: of a journal configuration; pressure only, and all three surrogates.
+GP_CASES = {
+    "pressure": ("press: {fix_noise: True, atol: 1., rtol: 0.1, "
+                 "obs_stddev: 100., max_steps: 2}"),
+    "all": ("press: {fix_noise: True, atol: 1., rtol: 0.1, "
+            "obs_stddev: 100., max_steps: 2}, shear: {fix_noise: True, "
+            "atol: 1., rtol: 0.1, obs_stddev: 1., max_steps: 2}"),
+}
+
+
+def gp_yaml(nx, ny, gp=GP_CASES["all"], grid="", dt=5e-11, max_it=10,
+            out="data/val_gp", dtool_path=None, init_size=4,
+            init_method="sobol", init_width=1e-4):
+    """A silent fixed-dt journal-bearing configuration with GP surrogates
+    on the mock oracle (``V = 0.05``, so that the yz stress is not zero);
+    ``gp`` is the body of the ``gp:`` section, ``grid`` adds edge keys."""
+    grid = ", " + grid if grid else ""
+    dtool = dtool_path or out + "/train"
+    return (f"options: {{output: {out}, write_freq: 1000000, "
+            "silent: True}\n"
+            f"grid: {{dx: 2.e-5, dy: 2.e-5, Nx: {nx}, Ny: {ny}{grid}}}\n"
+            "geometry: {type: journal, CR: 1.e-2, eps: 0.7, U: 0.1, "
+            "V: 0.05}\n"
+            f"numerics: {{CFL: 0.25, adaptive: 0, tol: 1e-30, dt: {dt}, "
+            f"max_it: {max_it}}}\n"
+            f"properties: {{shear: 0.0794, bulk: 0., {DH}}}\n"
+            f"gp: {{{gp}}}\n"
+            f"db: {{init_size: {init_size}, init_method: {init_method}, "
+            f"init_width: {init_width}, dtool_path: {dtool}}}\n")
+
+
+_JOURNAL_XSCALE = (877.7, 68.7, 23.7, 1.7e-6, 6.2e-3, 6.2e-3, 1.0)
+
+
+def synthetic_gp_state(dims, use, cap, rng, dtype=torch.float32,
+                       device="cpu", xscale=_JOURNAL_XSCALE,
+                       yscales=(1e5, 1e3, 1e3)):
+    """Well-conditioned padded GP state for kernel parity checks (the
+    draws of the JAX package's ``validate.synthetic_gp_state`` from the
+    same numpy generator, so both packages get the same state; its
+    feature and target scales are a journal bearing's, unless given).
+
+    A state trained on a near-uniform initial flow is degenerate
+    (saturated kernel, catastrophic alpha cancellation) and meaningless
+    to compare in float32; production states behave like this one."""
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), dtype=dtype,
+                               device=device)
+
+    state = {"Xscale": t(xscale)}
+    for key, dms, used, yscale in zip(("z", "x", "y"), dims, use, yscales):
+        if not used:
+            continue
+        d = len(dms)
+        state[f"params_{key}"] = {
+            "log_amp": t(0.2),
+            "log_scale": t(rng.uniform(-0.5, 0.5, d))}
+        state[f"Xfit_{key}"] = t(rng.uniform(0., 1.2, (cap, d)))
+        m = 1 if key == "z" else 2
+        alpha = rng.normal(size=(cap, m))
+        state[f"alpha_{key}"] = t(alpha if m == 2 else alpha[:, 0])
+        state[f"Yscale_{key}"] = t(yscale)
+    return state
+
+
+def gp_dims_use(problem):
+    """(active dims, used) per surrogate z, x, y of a GP Problem."""
+    models = (problem.pressure, problem.wall_stress_xz,
+              problem.wall_stress_yz)
+    return (tuple(tuple(m.active_dims) if m.is_gp_model else None
+                  for m in models),
+            tuple(m.is_gp_model for m in models))
+
+
+def gp_kernel_inputs(problem, cap, seed=0, amp=1e-3, ghosted=False,
+                     dtype=torch.float32, db_scales=False):
+    """Interior q, statics, dt, the GP kernel operands and the padded
+    state of a synthetic GP state (cap rows) on a perturbed (relative
+    density noise ``amp``) state of ``problem``, in ``dtype`` on its
+    device.  The state and q are float32 values (the JAX package's
+    inputs), the statics are computed in ``dtype``.  ``db_scales``
+    takes the feature and target scales of the Problem's database
+    instead of a journal bearing's."""
+    from .ops.stencil import ghost_statics, interior_statics
+    from .ops.stencil_gp import prep_gp_ops
+    dims, use = gp_dims_use(problem)
+    rng = np.random.default_rng(seed)
+    scales = {}
+    if db_scales:
+        scales = {"xscale": problem.database.X_scale,
+                  "yscales": [m.Yscale if m.is_gp_model else 1. for m in
+                              (problem.pressure, problem.wall_stress_xz,
+                               problem.wall_stress_yz)]}
+    state = synthetic_gp_state(dims, use, cap, rng, dtype, problem.device,
+                               **scales)
+    q = np.asarray(problem.q, np.float32)
+    q[0] *= 1 + amp * rng.standard_normal(q[0].shape)
+    q = torch.as_tensor(q, dtype=dtype, device=problem.device)
+    q = apply_bcs(q, problem._solver_cfg)[:, 1:-1, 1:-1].contiguous()
+    topo = problem.topo.full
+    extra = problem.fc.get_real_field("extra").p
+    statics = (ghost_statics if ghosted else interior_statics)(
+        topo, extra, dtype, problem.device)
+    return q, statics, problem.dt, prep_gp_ops(state, dims, use), state
+
+
+def gp_kernel_parity(problem, cap=16, seed=0):
+    """The GP kernel (:func:`ops.stencil_gp.gp_step`, or
+    :func:`~ops.stencil_gp.gp_step_bc` on D/N edges) against the plain
+    GP step (``core.gp_step``, kernels off) on a synthetic state, float32
+    on the Problem's device: (q scaled max error, p relative max error;
+    None on D/N edges, where the kernel writes no pressure)."""
+    from .core.gp_step import make_gp_step_core
+    from .ops.stencil import _fully_periodic, with_ghosts
+    from .ops.stencil_gp import gp_step, gp_step_bc
+    cfg = problem._solver_cfg
+    periodic = _fully_periodic(cfg)
+    q, st, dt, ops, state = gp_kernel_inputs(problem, cap, seed,
+                                             ghosted=not periodic)
+    dims, use = gp_dims_use(problem)
+    ref = make_gp_step_core(cfg, dims, problem.database.num_features, use,
+                            allow_pallas=False)
+    topo = torch.as_tensor(problem.topo.full, dtype=torch.float32,
+                           device=problem.device)
+    extra = torch.as_tensor(problem.fc.get_real_field("extra").p,
+                            dtype=torch.float32, device=problem.device)
+    qr, pr = ref(with_ghosts(q, cfg), topo, extra, dt, 0, state)
+    qr = qr[:, 1:-1, 1:-1]
+    if periodic:
+        qk, pk = gp_step(q, st, dt, cfg, ops)
+        p_err = float((pk - pr[1:-1, 1:-1]).abs().max()
+                      / pr[1:-1, 1:-1].abs().max())
+    else:
+        qk, p_err = gp_step_bc(q, st, dt, cfg, ops), None
+    return kernel_vs_plain_err(qk, qr), p_err

@@ -7,9 +7,10 @@ Nx 32, Ny 128 (the JAX kernels need a width that is a multiple of 128):
   ``make_pallas_step``) against the JAX ``make_pallas_step`` in Pallas
   interpret mode, float32, scaled error < 1e-5, for the four edge and
   thinning cases of chip_smoke phase 2c;
-- (b) the compensated K3 twin (``comp_steps_bc_ref``, 10 steps) against
+- (b) the compensated K3 twin (``comp_steps_bc_ref``, 8 steps) against
   the JAX ``make_pallas_loop(compensated=True)`` at float64, < 1e-10,
-  with and without thinning (sweep depths 4 and 2);
+  with and without thinning (sweep depths 4 and 2: whole sweeps, so the
+  JAX loop compiles one kernel);
 - (d) one twin step against the JAX ``make_det_step`` at float64,
   < 1e-10, for every EOS on D/N edges;
 - (e) a silent CPU ``Problem.run()`` of a D/N + thinning configuration
@@ -122,18 +123,18 @@ def test_bc_twin_matches_pallas_interpret(case):
 
 @pytest.mark.parametrize("case", ["dn_x", "dn_x_barus_eyring"])
 def test_comp_bc_twin_matches_pallas_loop(case):
-    """(b) 10 compensated K3 twin steps vs the JAX whole-run kernel
-    (nch = 6) plus its remainder steps, f64: sweeps of 4 steps without
-    thinning (2 sweeps + 2 remainder steps), of 2 with it (5 sweeps)."""
+    """(b) 8 compensated K3 twin steps vs the JAX whole-run kernel
+    (nch = 6), f64: sweeps of 4 steps without thinning (2 sweeps), of 2
+    with it (4 sweeps)."""
     text = yaml(*CASES[case])
-    jp, js, ts = states(text, amp=1e-3)      # stable over the 10 steps
+    jp, js, ts = states(text, amp=1e-3)      # stable over the 8 steps
     cfg = port_cfg(text)
     assert S._k_steps(cfg) == (2 if cfg.thinning else 4)
     jout = _jax_interpret(lambda step, loop: loop(
         jp._solver_cfg, NX, NY, bs=16, dtype=jnp.float64,
-        compensated=True)(js.q, js.topo, js.extra, js.dt, 10))
+        compensated=True)(js.q, js.topo, js.extra, js.dt, 8))
     q, st, dt = inputs(ts, cfg, torch.float64)
-    out, lo = S.comp_steps_bc_ref(q, torch.zeros_like(q), st, dt, cfg, 10)
+    out, lo = S.comp_steps_bc_ref(q, torch.zeros_like(q), st, dt, cfg, 8)
     assert scaled_err(out, jout[:, 1:-1, 1:-1]) < 1e-10
     assert torch.isfinite(lo).all()
 

@@ -1,10 +1,10 @@
 """CUDA kernels of the port against their plain twins, on a GPU.
 
 K1/K2 (periodic), K3 (D/N edges and shear thinning, per step and
-compensated) and K4 (mixed per-component edges, per step and through its
-loop) on ragged shapes (no multiple of the 8 x 32 tile), and runs that
-take the kernels.  The kernels have no CPU mode, so these tests skip
-without a CUDA device.
+compensated), K4 (mixed per-component edges, per step and through its
+loop) on ragged shapes (no multiple of the 8 x 32 tile), K5/K6/K7 (the
+GP-closed steps) at 128 x 128, and runs that take the kernels.  The
+kernels have no CPU mode, so these tests skip without a CUDA device.
 This file imports no JAX; on a machine without it, run
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -m gpu
@@ -17,7 +17,9 @@ import torch
 from gapflow_torch import Problem
 from gapflow_torch.ops import mixed_bc as M
 from gapflow_torch.ops import stencil as S
-from gapflow_torch.validate import (BC_CASES, MIXED_CASES, journal_yaml,
+from gapflow_torch.ops import stencil_gp as G
+from gapflow_torch.validate import (BC_CASES, GP_CASES, MIXED_CASES,
+                                    gp_kernel_inputs, gp_yaml, journal_yaml,
                                     kernel_vs_plain_err, perturbed_state)
 
 SIM = """
@@ -183,4 +185,83 @@ def test_dn_run_takes_the_kernels(cuda, case):
     assert S.LAUNCHES["comp_step_bc"] == 10 // k * k
     assert S.LAUNCHES["fused_step_bc"] == 10 % k
     assert sum(S.LAUNCHES.values()) == 10
+    assert np.isfinite(p.q).all() and (p.q[0] > 0).all()
+
+
+# -- GP-closed kernels --------------------------------------------------------
+
+GP_GRIDS = {"periodic": "", "dn_x": BC_CASES["dn_x"][0],
+            "dn_all_asymmetric": BC_CASES["dn_all_asymmetric"][0]}
+
+
+def _gp_problem(tmp_path, grid="", gp="all", n=128, **kw):
+    p = Problem.from_string(
+        gp_yaml(n, n, gp=GP_CASES[gp], grid=grid, out=str(tmp_path / "o"),
+                dtool_path=str(tmp_path / "train"), **kw),
+        device="cuda", dtype=torch.float32)
+    p._pre_run()
+    return p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edges", list(GP_GRIDS))
+@pytest.mark.parametrize("gp,cap", [("pressure", 16), ("all", 16),
+                                    ("all", 48)])
+def test_gp_kernels_match_twins(cuda, tmp_path, edges, gp, cap):
+    """K5 (periodic: state and pass-2 pressure) or K6 (D/N edges) against
+    its twin at 128 x 128, synthetic surrogates (48 points: a partial
+    tile of staged training points)."""
+    p = _gp_problem(tmp_path, GP_GRIDS[edges], gp)
+    cfg = p._solver_cfg
+    periodic = edges == "periodic"
+    q, st, dt, ops, _ = gp_kernel_inputs(p, cap, ghosted=not periodic,
+                                         db_scales=True)
+    G.reset_launches()
+    if periodic:
+        (qk, pk), (qr, pr) = (G.gp_step(q, st, dt, cfg, ops),
+                              G.gp_step_ref(q, st, dt, cfg, ops))
+        assert float((pk - pr).abs().max() / pr.abs().max()) < 2e-5
+        # the variant without the pressure output (the AL advance's)
+        qn, pn = G.gp_step(q, st, dt, cfg, ops, need_p=False)
+        assert pn is None and torch.equal(qn, qk)
+        assert G.LAUNCHES["gp_step"] == 2
+    else:
+        qk = G.gp_step_bc(q, st, dt, cfg, ops)
+        qr = G.gp_step_bc_ref(q, st, dt, cfg, ops)
+        assert G.LAUNCHES["gp_step_bc"] == 1
+    assert kernel_vs_plain_err(qk, qr) < 1e-5
+
+
+@pytest.mark.gpu
+def test_gp_steps_match_twin(cuda, tmp_path):
+    p = _gp_problem(tmp_path)
+    cfg = p._solver_cfg
+    q, st, dt, ops, _ = gp_kernel_inputs(p, 16, db_scales=True)
+    q0 = q.clone()
+    G.reset_launches()
+    qk = G.gp_steps(q, st, dt, cfg, ops, 6)
+    assert G.LAUNCHES["gp_steps"] == 6
+    assert kernel_vs_plain_err(qk, G.gp_steps_ref(q, st, dt, cfg, ops, 6)) \
+        < 1e-5
+    assert torch.equal(q, q0)                       # input untouched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("al,route,kernel", [
+    ("True", "gp_chunked", "gp_step"), ("False", "gp_fast", "gp_steps")])
+def test_gp_run_takes_the_kernels(cuda, tmp_path, al, route, kernel):
+    """A silent GP run at 128 x 128 through Problem.run(): chunked active
+    learning steps through K5, frozen surrogates through K7."""
+    text = gp_yaml(128, 128, max_it=8, out=str(tmp_path / "o"),
+                   dtool_path=str(tmp_path / "train"),
+                   gp=GP_CASES["all"].replace("max_steps: 2",
+                                              f"max_steps: 2, "
+                                              f"active_learning: {al}"))
+    p = Problem.from_string(text, device="cuda", dtype=torch.float32)
+    G.reset_launches()
+    S.reset_launches()
+    p.run()
+    assert p._route == route and p.step == 8
+    assert G.LAUNCHES[kernel] == 8
+    assert sum(G.LAUNCHES.values()) == 8 and sum(S.LAUNCHES.values()) == 0
     assert np.isfinite(p.q).all() and (p.q[0] > 0).all()
