@@ -11,8 +11,11 @@ GP-surrogate journal with active learning on the mock MD oracle and with
 frozen surrogates, and the GP rough contact on D/N edges, twice), holds
 each GP kernel against its twin on the state and the surrogates its run
 ended with, checks that the kernel routes and the plain torch steps
-agree on a run (deterministic and GP), checks the physics against the
-analytic Sommerfeld solution, and holds each kernel against its twin
+agree on a run (deterministic and GP), drives the elastic (EHL) paths
+(the EHL kernel loop, the pass-2 route of ``Problem.run()``, GP x
+elastic with frozen surrogates, the flagship rough-surface EHL GP
+configuration, adaptive dt on the device), checks the physics against
+the analytic Sommerfeld solution, and holds each kernel against its twin
 again on the main paths' 1024² inputs before timing both.  Any failed
 phase raises, which exits non-zero before the result line.
 Without CUDA, or without the package beside it, the script fails the
@@ -60,6 +63,11 @@ MUFU_OPS_PER_S = 16 * 132 * 1.98e9
 # EOS/piezoviscosity up to ~30 per pass (thinning adds ~30), the one-sided
 # update ~18, two passes plus the average or the Kahan two-sum.
 OPS_PER_CELL = 300
+# FP32 operations per cell of the statics the EHL kernel K8 forms from the
+# deformed gap (csrc/stencil_ehl.cu EhlStatics::load, once per cell): two
+# differences and their scalings, 4 Ls + H, 3 Ls + H, two divisions, 2 Ls,
+# 6 Ls and the three products of 2 (3 Ls + H) ic ic.
+EHL_STATICS_OPS = 15
 
 _BAYADA = ("EOS: Bayada, rho0: 850., rho_l: 850., rho_v: 0.019, "
            "c_l: 1600., c_v: 352.")
@@ -228,12 +236,12 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(ins, outs, cells):
+def bound(ins, outs, cells, ops=OPS_PER_CELL):
     """(bound_ms, bound_by): each input read once and each output written
-    once at the HBM rate, against OPS_PER_CELL at the fp32 rate."""
+    once at the HBM rate, against ``ops`` per cell at the fp32 rate."""
     nbytes = sum(t.numel() * t.element_size() for t in (*ins, *outs))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = OPS_PER_CELL * cells / FP32_OPS_PER_S * 1e3
+    t_ops = ops * cells / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -755,6 +763,375 @@ def gp_kernel_times(pj, pa, n=N, reps=20, plain_reps=3):
     return errs, times, bounds
 
 
+# -- the elastic (EHL) slice -------------------------------------------------
+
+EHL_STEPS = 500          # phase 3j: run_steps_ehl on the 1024² EHL journal
+EHL_RUN_IT = 512         # phase 3k: Problem.run(), the pass-2 route
+# phase 3k: route agreement on the pass-2 protocol at 128², 50 steps from
+# one perturbed state (relative density noise 1e-3): the kernel route
+# against the f32 plain route within ROUTE_TOL, and against a float64
+# plain run within EHL_ROUTE_TOL, about three times the f32 plain route's
+# own distance to that run (1.727e-4 on an H100 80GB HBM3); both f32
+# routes carry the DH EOS's float32 rounding
+EHL_ROUTE_N, EHL_ROUTE_STEPS, EHL_ROUTE_TOL = 128, 50, 5e-4
+GP_EHL_STEPS = 200       # phase 3l
+FLAGSHIP_N, FLAGSHIP_IT = 256, 100       # phase 3m
+ADAPTIVE_IT = 2000       # phase 3n
+
+
+def ehl_journal(n, V=0., max_it=1000000, dtype=None):
+    """The EHL journal of the JAX package's benchmark (bench.py
+    bench_ehl_step: DH, E 5e9, nu 0.3, alpha 1e-4, fixed dt 5e-11, fully
+    periodic) at n x n."""
+    from gapflow_torch.validate import ehl_yaml
+    return problem(ehl_yaml(n, n, V=V, max_it=max_it, out="data/smoke"),
+                   dtype)
+
+
+def ehl_run_inputs(p):
+    """K8's inputs on a Problem's current state and deformation state,
+    float32 on the card: interior q, the deformed interior gap, the slip
+    length, the patches px, py, dt; and the ghost-inclusive pressure the
+    deformation step takes."""
+    from gapflow_torch.core.gp_step import _wrap_pad
+    from gapflow_torch.models.eos import eos_pressure
+    from gapflow_torch.ops import stencil as S
+    f32 = torch.float32
+    cfg = p._solver_cfg
+    ed = p.topo.ElasticDeformation
+    q = p._tensor(p.q).to(f32)[:, 1:-1, 1:-1].contiguous()
+    h_full = p._tensor(p.topo.h_undeformed).to(f32) + ed.u_prev.to(f32)
+    ls = p._tensor(p.fc.get_real_field("extra").p[0, 1:-1, 1:-1]).to(f32) \
+        .contiguous()
+    px, py = S.ehl_patches(h_full, cfg)
+    p_full = _wrap_pad(eos_pressure(q[0], cfg.prop))
+    return (q, h_full[1:-1, 1:-1].contiguous(), ls, px, py,
+            float(np.float32(p.dt)), p_full)
+
+
+def ehl_comp_pair(h, ls, px, py):
+    """K8's compensated step and its twin in the form check_comp_steps
+    calls (statics argument unused: the kernel forms them)."""
+    from gapflow_torch.ops import stencil as S
+
+    def run(step):
+        def f(q, lo, _st, dt, cfg, n):
+            for _ in range(n):
+                q, lo = step(q, lo, h, ls, px, py, dt, cfg)
+            return q, lo
+        return f
+    return run(S.ehl_comp_step), run(S.ehl_comp_step_ref)
+
+
+def ehl_checks(label, q, h, ls, px, py, dt, cfg):
+    """K8's two entries against their twins: (ehl_step err, ehl_comp_step
+    err), max abs errors."""
+    from gapflow_torch.ops import stencil as S
+    e1 = max(check(f"{label}: ehl_step emit_delta={d}",
+                   S.ehl_step(q, h, ls, px, py, dt, cfg, emit_delta=d),
+                   S.ehl_step_ref(q, h, ls, px, py, dt, cfg, emit_delta=d))
+             for d in (False, True))
+    e2 = check_comp_steps(f"{label}: ehl_comp_step", *ehl_comp_pair(
+        h, ls, px, py), q, torch.zeros_like(q), None, dt, cfg)
+    return e1, e2
+
+
+def launched():
+    from gapflow_torch.ops import stencil as S
+    from gapflow_torch.ops import stencil_gp as G
+    return {k: v for k, v in {**S.LAUNCHES, **G.LAUNCHES}.items() if v}
+
+
+def reset_all():
+    from gapflow_torch.ops import stencil as S
+    from gapflow_torch.ops import stencil_gp as G
+    torch.cuda.synchronize()
+    S.reset_launches()
+    G.reset_launches()
+
+
+def expect_launches(label, want):
+    got = launched()
+    if got != want:
+        raise RuntimeError(f"{label}: launches {got}, expected {want}")
+
+
+def check_state(label, p, n_steps):
+    if p.step != n_steps:
+        raise RuntimeError(f"{label} stopped at step {p.step}")
+    if not (np.isfinite(p.q).all() and (p.q[0] > 0).all()
+            and np.isfinite(p.topo.full).all()):
+        raise RuntimeError(f"{label}: non-finite state or rho <= 0")
+
+
+def deform_ms(p, p_full, reps=20):
+    """One deformation update's time on the card: the half-space FFT
+    pair with its wrap/edge fill, and the relaxation."""
+    ed = p.topo.ElasticDeformation
+    a = ed.alpha_underrelax
+    u = ed.u_prev
+    return time_ms(lambda: (1. - a) * u + a * ed.deformation_full(p_full),
+                   reps)
+
+
+def ehl_main(n, reps=50):
+    """Phase 3j: Problem.run_steps_ehl on the n² EHL journal, the K8 main
+    path.  Returns (launches, errs, wall, the Problem)."""
+    p = ehl_journal(n)
+    p._pre_run()
+    cfg = p._solver_cfg
+    reset_all()
+    t0 = time.perf_counter()
+    p.run_steps_ehl(EHL_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lau = launched()
+    print(f"  run_steps_ehl({EHL_STEPS}): launches {lau}, wall {wall:.3f} s, "
+          f"{n * n * EHL_STEPS / wall:.4e} cell-updates/s, max deformation "
+          f"{np.abs(p.topo.deformation).max():.4e} m (gap "
+          f"{p.topo.h.min():.4e}..{p.topo.h.max():.4e} m)")
+    expect_launches("3j", {"ehl_comp_step": EHL_STEPS})
+    check_state("3j", p, EHL_STEPS)
+    q, h, ls, px, py, dt, p_full = ehl_run_inputs(p)
+    errs = ehl_checks("3j final state and deformation", q, h, ls, px, py,
+                      dt, cfg)
+    from gapflow_torch.ops import stencil as S
+    lo = torch.zeros_like(q)
+    k_ms = time_ms(lambda: S.ehl_comp_step(q, lo, h, ls, px, py, dt, cfg),
+                   reps)
+    f_ms = deform_ms(p, p_full, reps)
+    step_ms = wall / EHL_STEPS * 1e3
+    print(f"  3j per step: wall {step_ms:.4f} ms = K8 {k_ms:.4f} ms + "
+          f"deformation (FFT pair, fill, relaxation) {f_ms:.4f} ms + rest "
+          f"{step_ms - k_ms - f_ms:.4f} ms (patches, gap, EOS, wrap, host "
+          f"launches); K8 share {k_ms / step_ms:.3f}")
+    return lau, errs, wall, p
+
+
+def ehl_route_check():
+    """Phase 3k, second half: the pass-2 protocol at EHL_ROUTE_N² for
+    EHL_ROUTE_STEPS steps from one perturbed state, three times: the
+    kernel route (K5 without surrogates) in float32, the plain step in
+    float32 and in float64."""
+    from gapflow_torch.core.step import apply_bcs
+    from gapflow_torch.validate import kernel_vs_plain_err, perturbed_q
+    n, steps = EHL_ROUTE_N, EHL_ROUTE_STEPS
+    q0, runs = None, {}
+    for label, dtype, kernels in (("kernel route f32", torch.float32, True),
+                                  ("plain step f32", torch.float32, False),
+                                  ("plain step f64", torch.float64, False)):
+        p = ehl_journal(n, dtype=dtype)
+        if q0 is None:
+            q0 = apply_bcs(torch.as_tensor(perturbed_q(p.q, seed=0,
+                                                       amp=1e-3)),
+                           p._solver_cfg).numpy().astype(np.float32)
+        p.q[...] = q0
+        p._pre_run()
+        reset_all()
+        p._run_steps_ehl_pass2(steps, allow_pallas=kernels)
+        torch.cuda.synchronize()
+        print(f"  {label}: launches {launched()}")
+        expect_launches(label, {"gp_step": steps} if kernels else {})
+        check_state(label, p, steps)
+        runs[label] = (torch.as_tensor(p.q, dtype=torch.float64),
+                       torch.as_tensor(p.topo.deformation)[None])
+    (qk, uk), (qp, up), (q64, u64) = runs.values()
+    d_kp = kernel_vs_plain_err(qk, qp)
+    d_k64, d_p64 = (kernel_vs_plain_err(q, q64) for q in (qk, qp))
+    u_kp = kernel_vs_plain_err(uk, up)
+    u_k64, u_p64 = (kernel_vs_plain_err(u, u64) for u in (uk, up))
+    print(f"  q, scaled max difference: kernel route vs f32 plain step "
+          f"{d_kp:.3e}; to the float64 run: kernel route {d_k64:.3e}, f32 "
+          f"plain step {d_p64:.3e}")
+    print(f"  deformation, scaled max difference: kernel route vs f32 plain "
+          f"step {u_kp:.3e}; to the float64 run: kernel route {u_k64:.3e}, "
+          f"f32 plain step {u_p64:.3e}")
+    if not (np.isfinite(d_kp) and d_kp < ROUTE_TOL and u_kp < ROUTE_TOL):
+        raise RuntimeError(f"pass-2 kernel route vs f32 plain step: q "
+                           f"{d_kp}, u {u_kp} >= {ROUTE_TOL}")
+    if not (np.isfinite(d_k64) and d_k64 < EHL_ROUTE_TOL):
+        raise RuntimeError(f"pass-2 kernel route vs float64: {d_k64} >= "
+                           f"{EHL_ROUTE_TOL}")
+
+
+def gp_ehl_yaml(n):
+    """The GP journal of phase 3g (frozen surrogates on the mock oracle)
+    with the half-space of the EHL journal: bench.py bench_gp_ehl's
+    configuration (V 0.05) as a Problem."""
+    from gapflow_torch.validate import EHL_ELASTIC
+    text = gp_journal_yaml(n, al=False)
+    if "C2: 1.23}" not in text:
+        raise RuntimeError("unexpected GP journal configuration")
+    return text.replace("C2: 1.23}", f"C2: 1.23, {EHL_ELASTIC}}}")
+
+
+def gp_ehl_main(n, reps=20):
+    """Phase 3l: run_steps_gp_fast on the GP x elastic journal with
+    bench.py bench_gp_ehl's three synthetic surrogates at GP_CAP points
+    (validate.synthetic_gp_state, numpy seed 0) standing in for the
+    database's fits.  Returns (launches, the K5 error, wall)."""
+    from gapflow_torch.ops import stencil as S
+    from gapflow_torch.ops import stencil_gp as G
+    from gapflow_torch.validate import gp_dims_use, synthetic_gp_state
+    p = gp_problem(gp_ehl_yaml(n))
+    dims, use = gp_dims_use(p)
+    state = synthetic_gp_state(dims, use, GP_CAP, np.random.default_rng(0),
+                               device=DEVICE)
+    # the bench protocol's surrogates in place of the mock database's fits
+    p._frozen_gp_state = lambda capacity=None: (state, dims, use,
+                                                p.database.num_features)
+    reset_all()
+    t0 = time.perf_counter()
+    p.run_steps_gp_fast(GP_EHL_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lau = launched()
+    print(f"  run_steps_gp_fast({GP_EHL_STEPS}), {GP_CAP} points x 3 "
+          f"surrogates: launches {lau}, wall {wall:.3f} s (the end-of-run "
+          f"host refresh included), {n * n * GP_EHL_STEPS / wall:.4e} "
+          f"cell-updates/s, max deformation "
+          f"{np.abs(p.topo.deformation).max():.4e} m")
+    expect_launches("3l", {"gp_step": GP_EHL_STEPS})
+    check_state("3l", p, GP_EHL_STEPS)
+    cfg = p._solver_cfg
+    ops = G.prep_gp_ops(state, dims, use)
+    q = p._tensor(p.q)[:, 1:-1, 1:-1].contiguous()
+    st = S.interior_statics(p.topo.full, p.fc.get_real_field("extra").p,
+                            torch.float32, q.device)
+    (qk, pk), (qr, pr) = (G.gp_step(q, st, p.dt, cfg, ops),
+                          G.gp_step_ref(q, st, p.dt, cfg, ops))
+    err = max(check("3l final state and gap: gp_step", qk, qr),
+              check_p("3l final state and gap: gp_step", pk, pr))
+    k_ms = time_ms(lambda: G.gp_step(q, st, p.dt, cfg, ops), reps)
+    from gapflow_torch.core.gp_step import _wrap_pad
+    f_ms = deform_ms(p, _wrap_pad(pk), reps)
+    step_ms = wall / GP_EHL_STEPS * 1e3
+    print(f"  3l per step: wall {step_ms:.4f} ms = K5 {k_ms:.4f} ms + "
+          f"deformation {f_ms:.4f} ms + rest {step_ms - k_ms - f_ms:.4f} ms "
+          f"(topography and statics of the deformed gap, GP operands, host "
+          f"launches, the end-of-run refresh); K5 share "
+          f"{k_ms / step_ms:.3f}")
+    return lau, err, wall
+
+
+def flagship_yaml(n, max_it):
+    """examples/config/asperity_2d_ehl_gp.yaml (rough-surface EHL with GP
+    surrogates: BWR, D/N on four edges, a free half-space, chunked active
+    learning) widened to n x n, with its asperity depths from seed 0 and a
+    fresh database directory."""
+    import tempfile
+    import yaml
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "config", "asperity_2d_ehl_gp.yaml")
+    with open(path) as fh:
+        d = yaml.safe_load(fh)
+    d["options"].update(silent=True, output="data/smoke", use_tstamp=False)
+    d["grid"].update(Nx=n, Ny=n)
+    d["numerics"].update(max_it=max_it)
+    d["geometry"]["seed"] = 0
+    d["db"]["dtool_path"] = tempfile.mkdtemp(prefix="gp_train_")
+    return yaml.safe_dump(d)
+
+
+def adaptive_yaml(max_it):
+    """examples/config/parabolic_1d_elastic.yaml (EHL line contact,
+    adaptive dt) made silent, with no convergence stop before max_it."""
+    import yaml
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "config", "parabolic_1d_elastic.yaml")
+    with open(path) as fh:
+        d = yaml.safe_load(fh)
+    d["options"].update(silent=True, output="data/smoke", use_tstamp=False)
+    d["numerics"].update(max_it=max_it, tol=1e-30)
+    return yaml.safe_dump(d)
+
+
+def k5_empty_check(label, p, reps=0):
+    """K5 without surrogates (the pass-2 route's step) against its twin on
+    a Problem's current state and topography.  Returns (max abs error,
+    the kernel's ms over ``reps`` launches, None without)."""
+    from gapflow_torch.ops import stencil as S
+    from gapflow_torch.ops import stencil_gp as G
+    cfg = p._solver_cfg
+    nf = 6 + p.fc.get_real_field("extra").p.shape[0]
+    ops = G.prep_gp_ops({"Xscale": torch.ones(nf, device=DEVICE)},
+                        (None, None, None), (False, False, False))
+    q = p._tensor(p.q).float()[:, 1:-1, 1:-1].contiguous()
+    st = S.interior_statics(p.topo.full, p.fc.get_real_field("extra").p,
+                            torch.float32, q.device)
+    (qk, pk), (qr, pr) = (G.gp_step(q, st, p.dt, cfg, ops),
+                          G.gp_step_ref(q, st, p.dt, cfg, ops))
+    err = max(check(f"{label}: gp_step, no surrogates", qk, qr),
+              check_p(f"{label}: gp_step, no surrogates", pk, pr))
+    k_ms = (time_ms(lambda: G.gp_step(q, st, p.dt, cfg, ops), reps)
+            if reps else None)
+    return err, k_ms
+
+
+def adaptive_check(err):
+    """Phase 3n: Problem.run() on the adaptive EHL line contact (the
+    pass-2 route with dt on the device, K5 without surrogates), the dt
+    after every chunk recorded; then the same chunks on the f32 plain
+    step.  Returns the kernel route's launches."""
+    from gapflow_torch.validate import kernel_vs_plain_err
+    runs = {}
+    for label, kernels in (("kernel route", True), ("plain step", False)):
+        p = problem(adaptive_yaml(ADAPTIVE_IT))
+        p._pre_run()
+        dts, chunks = [p.dt], []
+        if kernels:
+            run_chunk = p._run_steps_ehl_pass2
+
+            def record(n, run_chunk=run_chunk, p=p):
+                run_chunk(n)
+                chunks.append(n)
+                dts.append(p.dt)
+            p._run_steps_ehl_pass2 = record
+            reset_all()
+            t0 = time.perf_counter()
+            p.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            lau = launched()
+            if p._route != "ehl_pass2":
+                raise RuntimeError(f"3n took {p._route}")
+            expect_launches("3n", {"gp_step": ADAPTIVE_IT})
+            err["gp_step"] = max(err["gp_step"], k5_empty_check(
+                "3n final state and gap", p)[0])
+        else:
+            reset_all()
+            t0 = time.perf_counter()
+            for n in runs["kernel route"][3]:
+                p._run_steps_ehl_pass2(n, allow_pallas=False)
+                dts.append(p.dt)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            expect_launches("3n plain", {})
+        check_state(f"3n {label}", p, ADAPTIVE_IT)
+        print(f"  {label}: wall {wall:.3f} s, dt from {dts[0]:.6e} to "
+              f"{dts[-1]:.6e} (min {min(dts):.6e}, max {max(dts):.6e} over "
+              f"{len(dts) - 1} chunks), simtime {p.simtime:.9e} s")
+        runs[label] = (torch.as_tensor(p.q, dtype=torch.float64), dts,
+                       p.simtime, chunks)
+    (qk, dk, tk, _), (qp, dp, tp, _) = runs.values()
+    d_q = kernel_vs_plain_err(qk, qp)
+    d_dt = max(abs(a / b - 1.) for a, b in zip(dk, dp))
+    d_t = abs(tk / tp - 1.)
+    # q is printed, not held: the parabolic gap is not periodic, and on
+    # the periodic grid the kernel route (interior statics, wrapped) and
+    # the plain step (the ghost cells' analytic slopes) differ at the seam
+    # by construction, as in the JAX package (1e-5 scaled in float64
+    # after 300 steps on the CPU, amplified by float32 rounding)
+    print(f"  kernel route vs f32 plain step: dt {d_dt:.3e} relative (max "
+          f"over the chunks), simtime {d_t:.3e} relative; q {d_q:.3e} "
+          f"scaled (seam convention, not held)")
+    if not (np.isfinite(d_dt) and max(d_dt, d_t) < ROUTE_TOL):
+        raise RuntimeError(f"3n routes disagree: dt {d_dt}, simtime {d_t} "
+                           f"(limit {ROUTE_TOL})")
+    return lau
+
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -890,6 +1267,26 @@ def main():
                 err["gp_steps"] = gp_check("all periodic cap 16", pg, 16,
                                            steps=8)
 
+    print(f"phase 2h: K8 vs plain twin ({N_CHECK} x {N_CHECK} perturbed "
+          f"journal, deformation 1e-9 N(0, 1) from numpy seed 7)")
+    from gapflow_torch.validate import (ehl_inputs, ehl_kernel_bitexact,
+                                        journal_problem)
+    pe = journal_problem(N_CHECK, N_CHECK, device=DEVICE)
+    q, h, ls, px, py, _, dt = ehl_inputs(pe)
+    err["ehl_step"], err["ehl_comp_step"] = ehl_checks(
+        "K8", q, h, ls, px, py, dt, pe._solver_cfg)
+    # the plain (emit_delta) K8 form runs on no float32 run: its path is
+    # this identity, validate.ehl_kernel_bitexact, counted from 0
+    reset_all()
+    ident = ehl_kernel_bitexact(n_steps=8, nx=N_CHECK, ny=N_CHECK)
+    torch.cuda.synchronize()
+    ehl_ident_launches = launched()
+    print(f"  compensated K8 vs emit_delta K8 + explicit Kahan two-sum, 8 "
+          f"steps: q max diff {ident['q_maxdiff']:.3e}, q_lo max diff "
+          f"{ident['lo_maxdiff']:.3e} (launches {ehl_ident_launches})")
+    if not ident["ok"]:
+        raise RuntimeError(f"K8 identity: {ident}")
+
     # -- phase 3: the main paths ------------------------------------------
     n, max_it = N, MAX_IT
     print(f"phase 3: Problem.run(), silent float32 journal {n} x {n}, "
@@ -1015,6 +1412,64 @@ def main():
           f"learning: kernel route vs the plain GP step")
     gp_route_check()
 
+    print(f"phase 3j: Problem.run_steps_ehl({EHL_STEPS}), silent float32 "
+          f"EHL journal {n} x {n} (bench.py bench_ehl_step: DH, E 5e9, nu "
+          f"0.3, alpha 1e-4, fixed dt 5e-11, fully periodic)")
+    le, (e1, e2), _, pj3 = ehl_main(n)
+    launches["ehl_comp_step"] = le["ehl_comp_step"]
+    launches["ehl_step"] = ehl_ident_launches["ehl_step"]
+    err["ehl_step"] = max(err["ehl_step"], e1)
+    err["ehl_comp_step"] = max(err["ehl_comp_step"], e2)
+
+    print(f"phase 3k: Problem.run(), the same configuration, max_it "
+          f"{EHL_RUN_IT}")
+    pk = ehl_journal(n, max_it=EHL_RUN_IT)
+    reset_all()
+    t0 = time.perf_counter()
+    pk.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"  route {pk._route}, steps {pk.step}, launches {launched()}, "
+          f"wall {wall:.3f} s, {n * n * pk.step / wall:.4e} cell-updates/s")
+    if pk._route != "ehl_pass2":
+        raise RuntimeError(f"3k took {pk._route}")
+    expect_launches("3k", {"gp_step": EHL_RUN_IT})
+    check_state("3k", pk, EHL_RUN_IT)
+    e5, k_ms = k5_empty_check("3k final state and gap", pk, reps=50)
+    err["gp_step"] = max(err["gp_step"], e5)
+    f_ms = deform_ms(pk, ehl_run_inputs(pk)[-1], 50)
+    step_ms = wall / EHL_RUN_IT * 1e3
+    print(f"  3k per step: wall {step_ms:.4f} ms = K5 without surrogates "
+          f"{k_ms:.4f} ms + deformation {f_ms:.4f} ms + rest "
+          f"{step_ms - k_ms - f_ms:.4f} ms (the deformed gap's topography "
+          f"and statics, EOS, host launches, chunk statistics); K5 share "
+          f"{k_ms / step_ms:.3f}")
+    print(f"phase 3k: route agreement on the pass-2 protocol, "
+          f"{EHL_ROUTE_N} x {EHL_ROUTE_N}, {EHL_ROUTE_STEPS} steps")
+    ehl_route_check()
+
+    print(f"phase 3l: GP x elastic, frozen surrogates, {n} x {n} (bench.py "
+          f"bench_gp_ehl: V 0.05, {GP_CAP} synthetic points x 3 "
+          f"surrogates), run_steps_gp_fast({GP_EHL_STEPS})")
+    _, e5, _ = gp_ehl_main(n)
+    err["gp_step"] = max(err["gp_step"], e5)
+
+    print(f"phase 3m: Problem.run(), the flagship rough-surface EHL "
+          f"(examples/config/asperity_2d_ehl_gp.yaml at {FLAGSHIP_N} x "
+          f"{FLAGSHIP_N}, seeded asperities, chunked active learning), "
+          f"max_it {FLAGSHIP_IT}")
+    pf3 = gp_problem(flagship_yaml(FLAGSHIP_N, FLAGSHIP_IT))
+    drive_gp("flagship EHL", pf3, "gp_chunked", {})
+    if not np.isfinite(pf3.topo.full).all():
+        raise RuntimeError("3m: non-finite topography")
+    print(f"  max deformation {np.abs(pf3.topo.deformation).max():.4e} "
+          f"(gap {pf3.topo.h.min():.4e}..{pf3.topo.h.max():.4e})")
+
+    print(f"phase 3n: Problem.run(), adaptive dt on the device "
+          f"(examples/config/parabolic_1d_elastic.yaml, silent), max_it "
+          f"{ADAPTIVE_IT}")
+    adaptive_check(err)
+
     # -- phase 4: physics ---------------------------------------------------
     from gapflow_torch.validate import sommerfeld_l2
     t0 = time.perf_counter()
@@ -1034,6 +1489,24 @@ def main():
     errs.update(gerrs)
     times.update(gtimes)
     bounds.update(gbounds)
+    print(f"phase 5: K8 vs plain twin on 3j's final state and deformation, "
+          f"{n} x {n}")
+    q, h, ls, px, py, dt, _ = ehl_run_inputs(pj3)
+    cfg = pj3._solver_cfg
+    errs["ehl_step"], errs["ehl_comp_step"] = ehl_checks(
+        "K8 (phase 5)", q, h, ls, px, py, dt, cfg)
+    lo = torch.zeros_like(q)
+    times["ehl_step"] = (
+        time_ms(lambda: S.ehl_step(q, h, ls, px, py, dt, cfg), 200),
+        time_ms(lambda: S.ehl_step_ref(q, h, ls, px, py, dt, cfg), 20))
+    times["ehl_comp_step"] = (
+        time_ms(lambda: S.ehl_comp_step(q, lo, h, ls, px, py, dt, cfg), 200),
+        time_ms(lambda: S.ehl_comp_step_ref(q, lo, h, ls, px, py, dt, cfg),
+                20))
+    ops = OPS_PER_CELL + EHL_STATICS_OPS
+    bounds["ehl_step"] = bound((q, h, ls, px, py), (q,), n * n, ops)
+    bounds["ehl_comp_step"] = bound((q, lo, h, ls, px, py), (q, lo), n * n,
+                                    ops)
     for k, e in errs.items():
         err[k] = max(err[k], e)
     for k, (ms, plain) in times.items():
@@ -1051,6 +1524,8 @@ def main():
                     for k in ("fused_step_bc", "comp_step_bc", "mixed_step")})
     sources.update({k: "gapflow_torch/csrc/stencil_gp.cu"
                     for k in ("gp_step", "gp_step_bc", "gp_steps")})
+    sources.update({k: "gapflow_torch/csrc/stencil_ehl.cu"
+                    for k in ("ehl_step", "ehl_comp_step")})
     replaces = {"fused_step": "gapflow_tpu/ops/stencil.py:897",
                 "comp_step": "gapflow_tpu/ops/stencil.py:681",
                 "fused_step_bc": "gapflow_tpu/ops/stencil.py:370",
@@ -1058,7 +1533,9 @@ def main():
                 "mixed_step": "gapflow_tpu/ops/mixed_bc.py:246",
                 "gp_step": "gapflow_tpu/ops/stencil_gp.py:269",
                 "gp_step_bc": "gapflow_tpu/ops/stencil_gp.py:570",
-                "gp_steps": "gapflow_tpu/ops/stencil_gp.py:728"}
+                "gp_steps": "gapflow_tpu/ops/stencil_gp.py:728",
+                "ehl_step": "gapflow_tpu/ops/stencil.py:935",
+                "ehl_comp_step": "gapflow_tpu/ops/stencil.py:1105"}
     # no single PyTorch call computes a MacCormack step: library_ms null
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k],

@@ -8,10 +8,12 @@ learning.  Module names follow the JAX package, so each module's
 counterpart is found under the same name there.
 
 This package covers the deterministic path (YAML configuration,
-topography, the plain torch step :mod:`gapflow_torch.core.step`) and the
-silent fixed-dt GP path (:mod:`gapflow_torch.db`, :mod:`.models.gp`,
-:mod:`.core.al_chunked`); on an NVIDIA Hopper GPU they run through the
-CUDA kernels of :mod:`gapflow_torch.ops` (``csrc/*.cu``).
+topography, the plain torch step :mod:`gapflow_torch.core.step`), the
+silent GP path (:mod:`gapflow_torch.db`, :mod:`.models.gp`,
+:mod:`.core.al_chunked`) and the elastic / EHL slice
+(:mod:`gapflow_torch.elastic`, :mod:`.core.ehl`); on an NVIDIA Hopper
+GPU they run through the CUDA kernels of :mod:`gapflow_torch.ops`
+(``csrc/*.cu``).
 
 Precision: float64 by default; set the environment variable
 ``GAPFLOW_X64=0`` before import to run in float32 (the production setting

@@ -1,7 +1,7 @@
 """Chunked device/host GP active learning: host protocol, device stepping.
 
-Counterpart of :mod:`gapflow_tpu.core.al_chunked` (non-elastic, one
-device).  It keeps the exact host protocol of the reference
+Counterpart of :mod:`gapflow_tpu.core.al_chunked` (one device).  It
+keeps the exact host protocol of the reference
 (GaPFlow/models/gp.py:419-506): per-acquisition max-abs renormalization,
 scipy-BFGS hyperparameter refits, per-surrogate budgets and pause
 counters, while the fluid steps between acquisitions run on the device:
@@ -18,6 +18,14 @@ counters, while the fluid steps between acquisitions run on the device:
   packaging, renormalization), retrains with BFGS, rebuilds the padded
   buffers under the new normalization, and re-enters at the same step
   (the pause decrement is skipped on re-entry).
+
+Elastic problems compose (multiscale EHL, reference
+GaPFlow/problem.py:565-569, topography.py:424-441): per step the
+topography is rebuilt from the carried deformation, and after the step
+the pass-2 pressure deforms the surface under-relaxed, the host
+``topo.update()`` sequencing.  The advance then needs the pass-2
+pressure, so periodic domains take the GP kernel with its pressure
+output and D/N domains the plain GP step (as on the TPU).
 
 The JAX package runs the advance as one ``lax.while_loop`` on the device;
 here it is a Python loop over steps.  The trigger ``max(var) >= tol`` is
@@ -122,10 +130,18 @@ def gp_state_of(gps, Xscale, Yscales):
 @functools.lru_cache(maxsize=16)
 def make_advance_fn(cfg, specs_t, dims3, nfeat, use3, ncells, n_candidates,
                     allow_pallas=True):
+    """Cached non-elastic :func:`_build_advance` (``problem``-free, so
+    cached per configuration)."""
+    return _build_advance(cfg, specs_t, dims3, nfeat, use3, ncells,
+                          n_candidates, allow_pallas, None)
+
+
+def _build_advance(cfg, specs_t, dims3, nfeat, use3, ncells, n_candidates,
+                   allow_pallas, elastic_fns):
     """``advance``: GP-closed steps until a surrogate needs data.
 
-    ``advance(q, topo, extra, gps, pauses, Xscale, Yscales, step0, dt,
-    n_rem, skip_first, suppress) -> (q, steps_done, needs, pauses,
+    ``advance(q, topo, extra, u, gps, pauses, Xscale, Yscales, step0, dt,
+    n_rem, skip_first, suppress) -> (q, u, steps_done, needs, pauses,
     peaks)`` runs at most ``n_rem`` steps on ghost-inclusive device
     arrays and returns early, before the offending step, when an unpaused
     surrogate's maximum predictive variance over the candidate cells
@@ -136,22 +152,35 @@ def make_advance_fn(cfg, specs_t, dims3, nfeat, use3, ncells, n_candidates,
     the first step attempt (re-entry at the same step); ``suppress[k]``
     masks surrogate k's trigger for that first attempt (the host ruled k
     trusted at the contested step).  ``allow_pallas=False`` keeps the
-    plain GP step on every state.  ``problem``-free, so it is cached per
-    configuration."""
+    plain GP step on every state.
+
+    ``elastic_fns = (deformation function, h_undeformed, alpha,
+    shift_ref)`` composes the half-space: step 0 of the call uses
+    ``topo`` (the host field) verbatim, later steps the topography of the
+    carried deformation ``u`` (the unshifted relaxed state, shifted by
+    u[0, 0] for half/none periodicity where applied), which the pass-2
+    pressure updates after every step.  Non-elastic problems pass
+    ``u=None`` through."""
+    from .ehl import _topo_from_deformation
     specs = dict(specs_t)
     keys = list(specs)
-    # the advance discards p_last: periodic domains take the kernel
-    # variant without the pressure, uniform D/N domains the boundary kernel
+    elastic = elastic_fns is not None
+    # a non-elastic advance discards p_last: periodic domains take the
+    # kernel variant without the pressure, uniform D/N domains the
+    # boundary kernel
     step_core = make_gp_step_core(cfg, dims3, nfeat, use3, allow_pallas,
-                                  need_p=False)
+                                  need_p=elastic)
+    if elastic:
+        hs_deform, h_und, alpha, shift_ref = elastic_fns
     stride = (max(1, ncells // n_candidates)
               if n_candidates and n_candidates < ncells else None)
 
-    def advance(q, topo, extra, gps, pauses, Xscale, Yscales, step0, dt,
+    def advance(q, topo, extra, u, gps, pauses, Xscale, Yscales, step0, dt,
                 n_rem, skip_first, suppress, stats=None):
-        stepper = step_core.prepare(q, topo, extra,
-                                    gp_state_of(gps, Xscale, Yscales))
+        gp_state = gp_state_of(gps, Xscale, Yscales)
+        stepper = step_core.prepare(q, topo, extra, gp_state)
         s = stepper.inner(q)
+        topo_d = topo
         cand = (None if stride is None
                 else torch.arange(0, ncells, stride, device=q.device))
         tols = {k: _tol_norm(specs[k], float(gps[k].yerr)) for k in keys}
@@ -164,11 +193,20 @@ def make_advance_fn(cfg, specs_t, dims3, nfeat, use3, ncells, n_candidates,
             # start, before the variance check
             if not (skip_first and i == 0):
                 pauses = {k: max(-1, p - 1) for k, p in pauses.items()}
+            if elastic and i > 0:
+                # the gap of the carried deformation; the step's statics
+                # follow it
+                u_eff = u - u[0, 0] if shift_ref else u
+                topo_d = _topo_from_deformation(
+                    h_und, u_eff.to(q.dtype), cfg.dx, cfg.dy)
+                q_full = stepper.full(s)
+                stepper = step_core.prepare(q_full, topo_d, extra, gp_state)
+                s = stepper.inner(q_full)
             checked = [k for k in keys
                        if specs[k].use_al and pauses[k] < 0
                        and not (suppress[k] and i == 0)]
             if checked:
-                Xf = (_features(stepper.full(s), topo, extra)
+                Xf = (_features(stepper.full(s), topo_d, extra)
                       .reshape(nfeat, -1).T.to(Xscale.dtype)
                       / Xscale[None, :])
                 if cand is not None:
@@ -183,9 +221,14 @@ def make_advance_fn(cfg, specs_t, dims3, nfeat, use3, ncells, n_candidates,
                          for k in keys]
                 if any(needs):
                     break
-            s, _ = stepper.step(s, dt, step0 + i)
+            s, p = stepper.step(s, dt, step0 + i)
+            if elastic:
+                # host topo.update() after the step: the pass-2 pressure
+                if shift_ref:
+                    p = p - p[0, 0]
+                u = (1. - alpha) * u + alpha * hs_deform(p.to(u.dtype))
             i += 1
-        return stepper.full(s), i, needs, pauses, peaks
+        return stepper.full(s), u, i, needs, pauses, peaks
 
     return advance
 
@@ -239,17 +282,41 @@ def run_gp_al_chunked(problem, n_steps, capacity=None, n_candidates=None,
     if n_candidates is None:
         n_candidates = max(int(getattr(m, "al_candidates", 0) or 0)
                            for m in models.values())
-    advance = make_advance_fn(problem._solver_cfg, tuple(specs.items()),
-                              dims3, nfeat, use3, ncells, int(n_candidates),
-                              allow_pallas)
+    elastic = problem.topo.elastic
+    u = None
+    if elastic:
+        ed = problem.topo.ElasticDeformation
+        shift_ref = ed.periodicity in ("half", "none")
+        advance = _build_advance(
+            problem._solver_cfg, tuple(specs.items()), dims3, nfeat, use3,
+            ncells, int(n_candidates), allow_pallas,
+            (ed.deformation_full, problem._tensor(problem.topo.h_undeformed),
+             float(ed.alpha_underrelax), shift_ref))
+        u = ed.u_prev
+    else:
+        advance = make_advance_fn(problem._solver_cfg, tuple(specs.items()),
+                                  dims3, nfeat, use3, ncells,
+                                  int(n_candidates), allow_pallas)
 
     q = problem._tensor(problem.q)
     topo = problem._tensor(problem.topo.full)
     extra = problem._tensor(problem.fc.get_real_field("extra").p)
     dt = float(problem.dt)
 
-    def _sync_state():
+    def _sync_state(total_steps):
+        """Mirror the device state into the host fields (the host
+        variance and acquisition read them).  The topography is rewritten
+        only once a step has advanced: before the first ``topo.update()``
+        the host field carries the geometry's analytic gradients, which
+        the ``h`` setter would replace by numerical ones."""
         problem.q[...] = q.cpu().numpy()
+        if elastic and total_steps > 0:
+            ed.u_prev = u
+            u_np = u.cpu().numpy()
+            shift = u_np[0, 0] if shift_ref else 0.
+            problem.topo.deformation = u_np - shift
+            # the h setter refreshes the gradients (host update() order)
+            problem.topo.h = problem.topo.h_undeformed + (u_np - shift)
 
     steps_done = 0
     n_acquired = 0
@@ -267,11 +334,15 @@ def run_gp_al_chunked(problem, n_steps, capacity=None, n_candidates=None,
         gps, pauses = init_gp_states(problem, cap, torch.float64)
         Yscales = {k: f64(models[k].Yscale) for k in specs}
         Xscale = f64(db.X_scale)
+        if elastic:
+            # the advance's first step takes the host field verbatim
+            # (refreshed by _sync_state after the last exit)
+            topo = problem._tensor(problem.topo.full)
         stats["host_s"] += time.perf_counter() - tic
 
         tic = time.perf_counter()
-        q, steps, needs, pauses, peaks = advance(
-            q, topo, extra, gps, pauses, Xscale, Yscales,
+        q, u, steps, needs, pauses, peaks = advance(
+            q, topo, extra, u, gps, pauses, Xscale, Yscales,
             problem.step + steps_done, dt, n_steps - steps_done,
             skip_first, suppressed, stats)
         stats["advance_s"] += time.perf_counter() - tic
@@ -298,8 +369,8 @@ def run_gp_al_chunked(problem, n_steps, capacity=None, n_candidates=None,
                    float(peaks[k]) / _tol_norm(spec, float(gps[k].yerr))]
 
         # the host decides with its own dense variance (models.gp
-        # predict()), from the contested step's state
-        _sync_state()
+        # predict()), from the contested step's state (and topography)
+        _sync_state(problem.step + steps_done)
         cand = m._candidate_indices() if spec.use_al else None
         if cand is None:
             m._infer(compute_var=True)
@@ -332,7 +403,7 @@ def run_gp_al_chunked(problem, n_steps, capacity=None, n_candidates=None,
             if mm.last_fit_train_size < db.size:
                 mm._train(reason=0)
 
-    _sync_state()
+    _sync_state(problem.step + steps_done)
     for m in models.values():
         m._step += n_steps
         m.cond_gp = None

@@ -2,8 +2,10 @@
 
 Counterpart of :mod:`gapflow_tpu.core.gp_step` (``_features``,
 ``make_gp_closures``, ``make_gp_step_core`` with its kernel routes,
-``make_gp_step``).  When no retraining is pending the GP-closed timestep
-is a pure function of the state and the surrogates' padded buffers:
+``make_gp_step``, and adaptive dt on the device: ``make_v_sound``,
+``cfl_dt``, ``make_gp_adaptive_loop``).  When no retraining is pending
+the GP-closed timestep is a pure function of the state and the
+surrogates' padded buffers:
 
     per pass: build the feature matrix from the current q, predict the
               pressure and wall-stress means from the cached (params,
@@ -24,7 +26,7 @@ import torch
 
 from .integrate import predictor_corrector, source
 from .step import apply_bcs, effective_viscosity, mc_directions
-from ..models.eos import eos_pressure, true_div
+from ..models.eos import eos_pressure, eos_sound_velocity, true_div
 from ..models.gp import _outputs_first, kernel_fn
 from ..models.viscous import stress_bottom, stress_top, stress_avg
 
@@ -210,3 +212,75 @@ def make_gp_step_core(cfg, active_dims, num_features, use_gp,
 def make_gp_step(cfg, active_dims, num_features, use_gp):
     """Cached :func:`make_gp_step_core` (the JAX package's jitted step)."""
     return make_gp_step_core(cfg, active_dims, num_features, use_gp)
+
+
+def make_v_sound(cfg, active_dims, num_features, use_gp):
+    """Maximum sound speed on the device, as the host property
+    ``Pressure.v_sound`` (models/stress.py) computes it: for a
+    deterministic pressure ``max(eos_sound_velocity(rho))`` over the
+    ghost-inclusive grid; for a GP pressure ``sqrt(max_x d mean / d
+    rho_norm * Yscale / Xscale[0])``, the gradient of the cached GP mean
+    over the full-grid feature matrix taken by ``torch.autograd``.
+
+    Returns ``v_sound(q, topo, extra, gp_state) -> 0-d tensor``, with
+    which the adaptive loops refresh ``dt = CFL * dmin / (v_max + c)``
+    every step."""
+    dims_z = active_dims[0]
+    gpz = use_gp[0]
+
+    def v_sound(q, topo, extra, gp_state):
+        if not gpz:
+            return torch.max(eos_sound_velocity(q[0], cfg.prop))
+        feats = _features(q, topo, extra)
+        Xf = (feats.reshape(num_features, -1).T
+              / gp_state["Xscale"][None, :])
+        with torch.enable_grad():
+            X = Xf[:, list(dims_z)].detach().requires_grad_(True)
+            mean = kernel_fn(gp_state["params_z"], gp_state["Xfit_z"],
+                             X).T @ gp_state["alpha_z"]
+            (dmean,) = torch.autograd.grad(mean.sum(), X)
+        vs_sq = (torch.max(dmean[:, 0]) * gp_state["Yscale_z"]
+                 / gp_state["Xscale"][0])
+        return torch.sqrt(vs_sq)
+
+    return v_sound
+
+
+def cfl_dt(cfg, q, v_sound):
+    """Adaptive timestep ``CFL * min(dx, dy) / (v_max + v_sound)`` with
+    ``v_max = sqrt(max(j^2 / rho))``, the CFL convention the reference
+    defines the criterion with (GaPFlow problem.py v_max), not the
+    physical velocity."""
+    v_max = torch.sqrt(torch.max((q[1] ** 2 + q[2] ** 2) / q[0]))
+    return true_div(cfg.CFL * min(cfg.dx, cfg.dy), v_max + v_sound)
+
+
+def make_gp_adaptive_loop(cfg, active_dims, num_features, use_gp, n_steps):
+    """Adaptive-dt frozen-GP loop on a fixed topography: ``loop(q, topo,
+    extra, dt, step0, gp_state) -> (q, dt, simtime_inc)``.
+
+    Each step goes through ``make_gp_step_core`` (the GP kernels on a
+    covered float32 CUDA state, without the pressure output) and is
+    followed by ``dt = CFL * dmin / (v_max + v_sound)`` from the new
+    state, the host ``_post_update`` order (reference
+    GaPFlow/problem.py:435-440).  ``dt`` and the simulated time are 0-d
+    tensors in the state's dtype."""
+    step_core = make_gp_step_core(cfg, active_dims, num_features, use_gp,
+                                  need_p=False)
+    v_sound = make_v_sound(cfg, active_dims, num_features, use_gp)
+
+    def loop(q, topo, extra, dt, step0, gp_state):
+        gp_state = cast_gp_state(gp_state, q.dtype)
+        dt = torch.as_tensor(dt, dtype=q.dtype, device=q.device)
+        t = torch.zeros((), dtype=q.dtype, device=q.device)
+        stepper = step_core.prepare(q, topo, extra, gp_state)
+        s = stepper.inner(q)
+        for i in range(n_steps):
+            s, _ = stepper.step(s, dt, step0 + i)
+            q = stepper.full(s)
+            c = v_sound(q, topo, extra, gp_state)
+            t = t + dt
+            dt = cfl_dt(cfg, q, c).to(q.dtype)
+        return q, dt, t
+
+    return loop

@@ -57,6 +57,14 @@ _SIGNATURES = {
     # coef, data, dt, stream
     "gf_gp_steps": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                     _P, _F, _P],
+    # q, h, ls, px, py, out, nx, ny, d0, emit_delta, iprm, fprm, rdx2,
+    # rdy2, dt, stream
+    "gf_ehl_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _F,
+                    _F, _P],
+    # q, lo, h, ls, px, py, q_out, lo_out, nx, ny, d0, iprm, fprm, rdx2,
+    # rdy2, dt, stream
+    "gf_ehl_comp_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                         _F, _F, _F, _P],
 }
 
 

@@ -1,7 +1,8 @@
 """Fused MacCormack steps: CUDA kernels, their plain twins, drivers.
 
-Counterpart of :mod:`gapflow_tpu.ops.stencil`.  Four kernels, in
-``csrc/stencil.cu`` (periodic) and ``csrc/stencil_bc.cu`` (boundary):
+Counterpart of :mod:`gapflow_tpu.ops.stencil`.  Six kernels, in
+``csrc/stencil.cu`` (periodic), ``csrc/stencil_bc.cu`` (boundary) and
+``csrc/stencil_ehl.cu`` (periodic, statics from the deformed gap):
 
 - :func:`fused_step` (replaces ``_kernel_fused``): one periodic step on
   the interior ``(3, nx, ny)`` state, returning the new state or, with
@@ -14,7 +15,13 @@ Counterpart of :mod:`gapflow_tpu.ops.stencil`.  Four kernels, in
   built from the interior by the edge formulas and refilled between the
   passes;
 - :func:`comp_steps_bc` (replaces ``_kernel_fused_bc_hbm``, ``nch = 6``):
-  its compensated form, one launch per step.
+  its compensated form, one launch per step;
+- :func:`ehl_step` (replaces ``_kernel_fused_ehl``) and
+  :func:`ehl_comp_step` (replaces ``_kernel_fused_ehl6``): K1's step and
+  the compensated step on the interior ``(q, q_lo)`` carry, with the
+  statics derived in-kernel from the interior gap height and slip length
+  and the boundary gradient patches of :func:`ehl_patches` (the EHL loop
+  deforms the gap every step, so its statics cannot be hoisted).
 
 The mixed-edge kernel (``_kernel_fused_bc_mixed``) and its driver are in
 :mod:`gapflow_torch.ops.mixed_bc`.
@@ -46,7 +53,7 @@ from . import _build
 from ..core.step import apply_bcs, effective_viscosity, mc_directions
 from ..models.closures_opt import (N_STATIC, fused_pass_top_pre,
                                    precompute_statics)
-from ..models.eos import _PRESSURE, _bwr_terms, eos_pressure
+from ..models.eos import _PRESSURE, _bwr_terms, eos_pressure, true_div
 from ..models.viscosity import _PIEZO, _THINNING
 
 #: Steps per sweep of the compensated loop: full sweeps go through
@@ -58,7 +65,8 @@ K_MULTI = 4
 #: Kernel launches per wrapper since the last reset (the plain twins
 #: count nothing).  ``mixed_step`` counts :func:`ops.mixed_bc.mixed_step`.
 LAUNCHES = {"fused_step": 0, "comp_step": 0, "fused_step_bc": 0,
-            "comp_step_bc": 0, "mixed_step": 0}
+            "comp_step_bc": 0, "mixed_step": 0, "ehl_step": 0,
+            "ehl_comp_step": 0}
 
 
 def reset_launches():
@@ -636,3 +644,165 @@ def make_pallas_loop(cfg, nx, ny, dtype=torch.float32, compensated=False,
         return with_ghosts(q_int, cfg)
 
     return loop
+
+
+# ---------------------------------------------------------------------------
+# K8: the EHL step with the statics derived from the deformed gap
+# ---------------------------------------------------------------------------
+
+def ehl_patches(h_full, cfg):
+    """Boundary gradient patches of a ghost-inclusive gap height ``(nx+2,
+    ny+2)``: ``px`` (2, ny), the central differences of interior rows 0
+    and nx-1, and ``py`` (2, nx), those of interior columns 0 and ny-1,
+    whose stencils reach the ghost ring (the geometry's midpoint heights,
+    not a wrap of the interior)."""
+    rdx2, rdy2 = 0.5 / cfg.dx, 0.5 / cfg.dy
+    px = torch.stack([(h_full[2, 1:-1] - h_full[0, 1:-1]) * rdx2,
+                      (h_full[-1, 1:-1] - h_full[-3, 1:-1]) * rdx2])
+    py = torch.stack([(h_full[1:-1, 2] - h_full[1:-1, 0]) * rdy2,
+                      (h_full[1:-1, -1] - h_full[1:-1, -3]) * rdy2])
+    return px.contiguous(), py.contiguous()
+
+
+def ehl_statics_ref(h_int, ls_int, px, py, cfg):
+    """The 8 static channels the EHL kernel forms in-kernel, in its order:
+    wrapped central differences of ``h_int`` times 0.5/dx (0.5/dy), rows
+    0 and nx-1 (columns 0 and ny-1) from ``px`` (``py``), and the factored
+    channels of ``precompute_statics``."""
+    rdx2, rdy2 = 0.5 / cfg.dx, 0.5 / cfg.dy
+    H, Ls = h_int, ls_int
+    Hx = (torch.roll(H, -1, dims=0) - torch.roll(H, 1, dims=0)) * rdx2
+    Hx[0] = px[0]
+    Hx[-1] = px[1]
+    Hy = (torch.roll(H, -1, dims=1) - torch.roll(H, 1, dims=1)) * rdy2
+    Hy[:, 0] = py[0]
+    Hy[:, -1] = py[1]
+    ic = true_div(1., 4. * Ls + H)
+    return torch.stack([Hx, Hy, H, 2. * Ls, true_div(1., H), ic,
+                        2. * (3. * Ls + H) * ic * ic, 6. * Ls])
+
+
+def ehl_step_ref(q_int, h_int, ls_int, px, py, dt, cfg, emit_delta=False):
+    """Plain torch twin of :func:`ehl_step`."""
+    return fused_step_ref(q_int, ehl_statics_ref(h_int, ls_int, px, py, cfg),
+                          dt, cfg, emit_delta)
+
+
+def ehl_comp_step_ref(q_int, q_lo, h_int, ls_int, px, py, dt, cfg):
+    """Plain torch twin of :func:`ehl_comp_step`: the emit_delta step and
+    the two-sum of ``_advance_comp``.  Returns ``(q, q_lo)``."""
+    return _kahan(q_int, q_lo, ehl_step_ref(q_int, h_int, ls_int, px, py, dt,
+                                            cfg, emit_delta=True))
+
+
+def _check_ehl(cfg, q, h_int, ls_int, px, py, *more):
+    if not _periodic_kernel_ok(cfg):
+        raise ValueError("the EHL kernel requires a fully periodic "
+                         "configuration without shear thinning")
+    _, nx, ny = q.shape
+    _check_tensors(q, (q, (3, nx, ny)), (h_int, (nx, ny)),
+                   (ls_int, (nx, ny)), (px, (2, ny)), (py, (2, nx)),
+                   *((m, (3, nx, ny)) for m in more))
+    return nx, ny
+
+
+def ehl_step(q_int, h_int, ls_int, px, py, dt, cfg, emit_delta=False):
+    """One fused periodic step with the statics formed in-kernel.
+
+    ``q_int``: (3, nx, ny); ``h_int``, ``ls_int``: the interior gap height
+    and slip length (nx, ny); ``px`` (2, ny), ``py`` (2, nx): the patches
+    of :func:`ehl_patches`.  Returns the new state, or with
+    ``emit_delta`` the increment.  CUDA tensors (float32) launch the
+    kernel; CPU tensors run :func:`ehl_step_ref`.
+    """
+    if _on_cpu(q_int):
+        return ehl_step_ref(q_int, h_int, ls_int, px, py, dt, cfg,
+                            emit_delta)
+    nx, ny = _check_ehl(cfg, q_int, h_int, ls_int, px, py)
+    iprm, fprm = _kernel_params(cfg)
+    d0, _ = mc_directions(cfg.MC_order)
+    out = torch.empty_like(q_int)
+    lib = _build.load()
+    with torch.cuda.device(q_int.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gf_ehl_step(q_int.data_ptr(), h_int.data_ptr(),
+                             ls_int.data_ptr(), px.data_ptr(), py.data_ptr(),
+                             out.data_ptr(), nx, ny, d0, int(emit_delta),
+                             iprm.ctypes.data, fprm.ctypes.data,
+                             0.5 / cfg.dx, 0.5 / cfg.dy, float(dt), stream)
+    _build.check(lib, rc, "gf_ehl_step")
+    LAUNCHES["ehl_step"] += 1
+    return out
+
+
+def ehl_comp_step(q_int, q_lo, h_int, ls_int, px, py, dt, cfg):
+    """One Kahan-compensated EHL step on the interior ``(q, q_lo)`` carry,
+    the two-sum in registers.  The inputs are not modified.  Returns
+    ``(q, q_lo)`` (on CUDA, the two halves of one (6, nx, ny) buffer).
+    CUDA tensors (float32) launch the kernel; CPU tensors run
+    :func:`ehl_comp_step_ref`.
+    """
+    if _on_cpu(q_int):
+        return ehl_comp_step_ref(q_int, q_lo, h_int, ls_int, px, py, dt, cfg)
+    nx, ny = _check_ehl(cfg, q_int, h_int, ls_int, px, py, q_lo)
+    iprm, fprm = _kernel_params(cfg)
+    d0, _ = mc_directions(cfg.MC_order)
+    out = torch.empty((6, nx, ny), dtype=q_int.dtype, device=q_int.device)
+    lib = _build.load()
+    with torch.cuda.device(q_int.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gf_ehl_comp_step(q_int.data_ptr(), q_lo.data_ptr(),
+                                  h_int.data_ptr(), ls_int.data_ptr(),
+                                  px.data_ptr(), py.data_ptr(),
+                                  out[:3].data_ptr(), out[3:].data_ptr(),
+                                  nx, ny, d0, iprm.ctypes.data,
+                                  fprm.ctypes.data, 0.5 / cfg.dx,
+                                  0.5 / cfg.dy, float(dt), stream)
+    _build.check(lib, rc, "gf_ehl_comp_step")
+    LAUNCHES["ehl_comp_step"] += 1
+    return out[:3], out[3:]
+
+
+def _ehl_gate(cfg):
+    if not _periodic_kernel_ok(cfg):
+        raise ValueError("EHL statics-in-kernel path requires a fully "
+                         "periodic, non-thinning configuration")
+
+
+def make_pallas_ehl_step(cfg, nx, ny, dtype=torch.float32, emit_delta=False):
+    """``step(q, u, h_und, extra, dt) -> q_new`` on ghost-inclusive arrays
+    around :func:`ehl_step`: the gap ``h_und + u`` is rebuilt inside the
+    kernel.  Returns the ghost-inclusive new state (ghosts by periodic
+    wrap) or, with ``emit_delta``, the interior increment."""
+    _ehl_gate(cfg)
+
+    def step(q, u, h_und, extra, dt):
+        q = torch.as_tensor(q).to(dtype)
+        _check_supported(cfg, q, nx, ny)
+        h_full = (torch.as_tensor(h_und, device=q.device)
+                  + torch.as_tensor(u, device=q.device)).to(dtype)
+        ls = torch.as_tensor(extra, device=q.device).to(dtype)[0, 1:-1, 1:-1]
+        px, py = ehl_patches(h_full, cfg)
+        out = ehl_step(q[:, 1:-1, 1:-1].contiguous(),
+                       h_full[1:-1, 1:-1].contiguous(), ls.contiguous(),
+                       px, py, dt, cfg, emit_delta)
+        return out if emit_delta else with_ghosts(out, cfg)
+
+    return step
+
+
+def make_pallas_ehl_loop_step(cfg, nx, ny, dtype=torch.float32):
+    """``step(q6, h_int, ls_int, px, py, dt) -> q6`` around
+    :func:`ehl_comp_step`, with ``q6`` the interior (6, nx, ny)
+    ``(q, q_lo)`` state."""
+    _ehl_gate(cfg)
+
+    def step(q6, h_int, ls_int, px, py, dt):
+        q6 = torch.as_tensor(q6).to(dtype)
+        if tuple(q6.shape) != (6, nx, ny):
+            raise ValueError(f"expected q6 of shape {(6, nx, ny)}, got "
+                             f"{tuple(q6.shape)}")
+        return torch.cat(ehl_comp_step(q6[:3], q6[3:], h_int, ls_int, px,
+                                       py, dt, cfg))
+
+    return step

@@ -91,10 +91,14 @@ class GPOps:
     """Per-surrogate kernel operands (the ``_prep_gp_ops`` layout, one
     entry per used surrogate key): ``dims``, ``coef`` (d,), ``Wm2``
     (cap, d), ``w2`` (cap,), ``alpha`` (cap, n_out), in one dtype on one
-    device.  :meth:`device_args` packs them for the CUDA entry points."""
+    device.  :meth:`device_args` packs them for the CUDA entry points.
+    With no surrogate (a deterministic step through the GP kernel, as the
+    pass-2 EHL route takes it) the kernel evaluates the EOS pressure and
+    the analytic wall stresses."""
 
-    def __init__(self, models):
+    def __init__(self, models, device):
         self.models = models          # key -> (dims, coef, Wm2, w2, alpha)
+        self.device = torch.device(device)
         self._packed = None
         self._floats = None
 
@@ -128,7 +132,9 @@ class GPOps:
                 coef[m, :d] = c.cpu().numpy()
                 rows.append(r.reshape(-1))
                 off += r.numel()
-            data = torch.cat(rows).to(torch.float32).contiguous()
+            data = (torch.cat(rows) if rows else
+                    torch.zeros(1, device=self.device)).to(torch.float32) \
+                .contiguous()
             self._packed = (meta, coef, data)
         return self._packed
 
@@ -158,7 +164,7 @@ def prep_gp_ops(gp_state, active_dims, use_gp):
         a = alpha if alpha.ndim == 2 else alpha[:, None]
         a = a * (amp * gp_state[f"Yscale_{key}"])
         models[key] = (tuple(dims), coef, Wm2, w2, a)
-    return GPOps(models)
+    return GPOps(models, gp_state["Xscale"].device)
 
 
 # ---------------------------------------------------------------------------

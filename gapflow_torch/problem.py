@@ -1,8 +1,8 @@
 """The Problem: configuration, time loop, I/O and model orchestration.
 
 Counterpart of :class:`gapflow_tpu.problem.Problem`: analytic
-constitutive laws or GP surrogates on the mock MD oracle, rigid
-topography.  Fields live in a host
+constitutive laws or GP surrogates on the mock MD oracle, rigid or
+elastic (FFT half-space) topography.  Fields live in a host
 :class:`~gapflow_torch.fields.FieldCollection` of numpy arrays
 (float64); the solver runs on ``device`` in ``dtype``.  Deterministic
 problems take one of two execution paths, as in the JAX package:
@@ -18,16 +18,22 @@ problems take one of two execution paths, as in the JAX package:
 - non-silent runs advance ``write_freq`` steps at a time
   (:meth:`run_steps`) and write a frame after each chunk.
 
-Silent fixed-dt GP problems advance in device chunks
+Silent GP and elastic problems advance in device chunks
 (:meth:`_run_device_multiscale`): with active learning on any surrogate
 through :meth:`run_steps_gp_chunked` (host acquisition protocol between
 device advances), with frozen surrogates through
-:meth:`run_steps_gp_fast`; float32 CUDA states take the GP kernels of
-:mod:`ops.stencil_gp`.
+:meth:`run_steps_gp_fast`, deterministic elastic problems through
+:meth:`_run_steps_ehl_pass2` (the host ``update()`` protocol on the
+device); float32 CUDA states take the GP kernels of
+:mod:`ops.stencil_gp`.  Adaptive dt rides the device loops except with
+active learning.  Non-silent deterministic elastic runs take the per-step
+host loop (``update()`` then ``topo.update()``).  :meth:`run_steps_ehl`
+is the fast EHL loop (end-of-step pressure; the EHL kernel K8 on a
+covered float32 CUDA state).
 
-Not ported yet (ROADMAP queue 1): non-silent GP runs (the per-step host
-loop), adaptive dt with GP surrogates, elastic deformation, a real MD
-engine.  Configurations that need them raise ``NotImplementedError``.
+Not ported yet (ROADMAP queue 1): non-silent GP runs and adaptive dt with
+active learning (the per-step host loop), a real MD engine.
+Configurations that need them raise ``NotImplementedError``.
 """
 
 import os
@@ -42,7 +48,8 @@ from .config import (read_yaml_input, read_yaml_string, write_yaml,
                      create_output_directory, history_to_csv)
 from .core.al_chunked import (_next_capacity, _surrogate_specs, gp_state_of,
                               init_gp_states, new_stats, run_gp_al_chunked)
-from .core.gp_step import make_gp_step_core
+from .core.ehl import make_ehl_loop, make_gp_ehl_loop
+from .core.gp_step import make_gp_adaptive_loop, make_gp_step_core
 from .core.state import SimState
 from .core.step import (SolverConfig, make_det_step, make_run_loop,
                         make_trajectory)
@@ -50,7 +57,7 @@ from .db import Database
 from .fields import FieldCollection
 from .md import Mock
 from .models import Pressure, WallStress, BulkStress
-from .models.eos import eos_sound_velocity
+from .models.eos import eos_pressure, eos_sound_velocity
 from .nc import NCWriter
 from .ops.mixed_bc import mixed_supported
 from .ops.stencil import (K_MULTI, interior_statics, make_pallas_loop,
@@ -123,10 +130,13 @@ class Problem:
         shear = gp.get("shear") if gp.get("shear_gp") else None
         self.wall_stress_xz = WallStress(*model_args, direction="x",
                                          data=database, gp=shear)
-        self.wall_stress_yz = WallStress(*model_args, direction="y",
-                                         data=database, gp=shear)
+        # a 1D problem has no yz surrogate (its jy and y-slopes vanish)
+        self.wall_stress_yz = WallStress(
+            *model_args, direction="y", data=database,
+            gp=None if grid["dim"] == 1 else shear)
 
-        self.topo = Topography(fc, grid, geo, prop)
+        self.topo = Topography(fc, grid, geo, prop, device=self.device,
+                               dtype=self.dtype)
 
         self._solver_cfg = SolverConfig.from_dicts(grid, geo, prop, numerics)
         self._det_step = None
@@ -142,12 +152,12 @@ class Problem:
                 full_dict[k] = v
             write_yaml(full_dict, os.path.join(self.outdir, "config.yml"))
 
-            topofile = NCWriter(os.path.join(self.outdir, "topo.nc"), fc,
-                                field_names=["topography"])
-            try:
-                topofile.append_frame().write()
-            finally:
-                topofile.close()
+            # topography output: once, or a frame per output when elastic
+            self.topofile = NCWriter(os.path.join(self.outdir, "topo.nc"),
+                                     fc, field_names=["topography"])
+            self.topofile.append_frame().write()
+            if not self.topo.elastic:
+                self.topofile.close()
 
             self.file = NCWriter(os.path.join(self.outdir, "sol.nc"), fc,
                                  field_names=["solution", "pressure",
@@ -180,12 +190,14 @@ class Problem:
         if not input_dict["options"]["silent"]:
             refuse("a non-silent GP run (the per-step host loop)",
                    "8, deferred")
-        if input_dict["numerics"]["adaptive"]:
-            refuse("adaptive dt with GP surrogates", "9")
+        gp = input_dict.get("gp") or {}
+        if input_dict["numerics"]["adaptive"] and any(
+                gp.get(f"{k}_gp") and gp[k]["active_learning"]
+                for k in ("press", "shear")):
+            refuse("adaptive dt with active learning (the per-step host "
+                   "loop)", "8, deferred")
         if input_dict["numerics"].get("gp_fast_pred"):
             refuse("numerics: gp_fast_pred", "8, deferred")
-        if input_dict["properties"].get("elastic", {}).get("enabled"):
-            refuse("an elastic GP problem", "9")
 
     @classmethod
     def from_yaml(cls, fname, device="cuda", dtype=None):
@@ -296,11 +308,12 @@ class Problem:
         # Silent runs need no per-step host I/O: the whole convergence loop
         # runs on the device.  Float32 CUDA problems the fused kernels
         # cover take the chunked kernel path (convergence checked at chunk
-        # granularity); everything else the plain step with the reference
+        # granularity); GP and elastic problems the multiscale device
+        # routes; everything else the plain step with the reference
         # per-step semantics.
         if self.options["silent"]:
             self._tic = datetime.now()
-            if self.has_gp_model:
+            if self.has_gp_model or self.topo.elastic:
                 self._run_device_multiscale()
             elif self._fast_run_eligible():
                 self._route = "run_compiled_fast"
@@ -312,8 +325,34 @@ class Problem:
                 self._post_run()
             return
 
+        if self.topo.elastic:
+            self._route = "host_loop"
+            self._run_host_loop(keep_open)
+            return
         self._route = "run_chunked"
         self._run_chunked(keep_open)
+
+    def _run_host_loop(self, keep_open=False):
+        """Non-silent elastic run: the per-step host loop (one
+        :meth:`update` with its ``topo.update()`` per step), a frame every
+        ``write_freq`` steps."""
+        print(61 * "-")
+        print(f"{'Step':6s} {'Timestep':10s} {'Time':10s} "
+              f"{'CFL':10s} {'Residual':10s}")
+        print(61 * "-")
+        self._refresh_det_fields()
+        self.write()
+
+        self._tic = datetime.now()
+        while (not self.converged and self.step < self.max_it
+               and not self._stop):
+            self.update()
+            if self.step % self.options["write_freq"] == 0:
+                self.write()
+            handle_signals(self._receive_signal)
+
+        if not keep_open:
+            self._post_run()
 
     def _run_chunked(self, keep_open=False):
         """Non-silent run: on-device chunks of write_freq steps, one frame
@@ -384,6 +423,8 @@ class Problem:
 
         if not self.options["silent"]:
             self.file.close()
+            if self.topo.elastic:
+                self.topofile.close()
 
         speed = self.step / max(walltime.total_seconds(), 1e-12)
 
@@ -438,7 +479,9 @@ class Problem:
              if np.isfinite(r)], 5)
 
     def update(self):
-        """One deterministic MacCormack timestep (plain torch step)."""
+        """One deterministic MacCormack timestep (plain torch step); an
+        elastic problem then deforms from the pass-2 pressure (reference
+        order)."""
         if self._det_step is None:
             self._det_step = make_det_step(self._solver_cfg)
 
@@ -447,6 +490,7 @@ class Problem:
 
         if bool(new_state.valid):
             self._sync_state(new_state)
+            self.topo.update()
         else:
             # rollback: q reset to pre-step values by the solver
             self.q[...] = new_state.q.cpu().numpy()
@@ -482,6 +526,12 @@ class Problem:
         """Advance ``n`` deterministic steps on the device; return the
         trajectory (qs, times), stacked along a leading axis of length n.
         The Problem state is synced to the final step."""
+        if self.has_gp_model:
+            raise RuntimeError("run_steps requires a deterministic problem")
+        if self.topo.elastic:
+            raise RuntimeError("run_steps does not cover elastic problems "
+                               "(the step freezes the topography; use "
+                               "update()/run() or run_steps_ehl)")
         if self.step is None:
             self._pre_run()
 
@@ -507,6 +557,9 @@ class Problem:
         increments, required for small fixed dt in float32 (see
         ops.stencil.make_pallas_loop).
         """
+        if self.has_gp_model or self.topo.elastic:
+            raise RuntimeError("run_steps_fast requires a deterministic, "
+                               "non-elastic problem")
         if self.step is None:
             self._pre_run()
         if self.numerics["adaptive"] or not self._kernels_cover():
@@ -645,17 +698,21 @@ class Problem:
         return any(s.use_al for s in _surrogate_specs(self).values())
 
     def _run_device_multiscale(self):
-        """Silent fixed-dt GP convergence run in device chunks.
+        """Silent GP or elastic convergence run in device chunks.
 
         Active learning on any surrogate takes :meth:`run_steps_gp_chunked`
         (host acquisition protocol between device advances), frozen
-        surrogates :meth:`run_steps_gp_fast`; the route is recorded in
-        ``self._route``.  Residual convergence and the rollback on NaN or
-        negative density are evaluated between chunks, as in
-        :meth:`run_compiled_fast`.
+        surrogates :meth:`run_steps_gp_fast` (elastic composes),
+        deterministic elastic problems :meth:`_run_steps_ehl_pass2`; the
+        route is recorded in ``self._route``.  Residual convergence and
+        the rollback on NaN or negative density are evaluated between
+        chunks, as in :meth:`run_compiled_fast`.
         """
-        self._route = ("gp_chunked" if self._route_uses_al()
-                       else "gp_fast")
+        if self.has_gp_model:
+            self._route = ("gp_chunked" if self._route_uses_al()
+                           else "gp_fast")
+        else:
+            self._route = "ehl_pass2"
         chunk = int(max(1, min(self.options["write_freq"], 512)))
         dmin = min(self.grid["dx"], self.grid["dy"])
         ekin_old = self.kinetic_energy
@@ -665,8 +722,10 @@ class Problem:
             n = int(min(chunk, self.max_it - self.step))
             if self._route == "gp_chunked":
                 self.run_steps_gp_chunked(n)
-            else:
+            elif self._route == "gp_fast":
                 self.run_steps_gp_fast(n)
+            else:
+                self._run_steps_ehl_pass2(n)
 
             if not self.q_is_valid:
                 print("Invalid state (NaN or negative density) detected; "
@@ -708,6 +767,11 @@ class Problem:
         if not self._route_uses_al():
             self.run_steps_gp_fast(n, capacity=capacity)
             return 0
+        if self.numerics["adaptive"]:
+            raise RuntimeError(
+                "adaptive dt with active learning runs the per-step host "
+                "protocol loop (not ported, ROADMAP queue 1, item 8); the "
+                "chunked advance carries a fixed dt between acquisitions")
         return run_gp_al_chunked(self, n, capacity=capacity,
                                  n_candidates=n_candidates)
 
@@ -719,7 +783,8 @@ class Problem:
             "run_steps_gp_device is not ported to gapflow_torch (ROADMAP "
             "queue 1, item 8, deferred); use run_steps_gp_chunked")
 
-    def run_steps_gp_fast(self, n, capacity=None, chunk=512):
+    def run_steps_gp_fast(self, n, capacity=None, chunk=512,
+                          deform_every=1):
         """Advance ``n`` GP-closed steps with frozen surrogates.
 
         The cached (hyperparameters, alpha) close every step and nothing
@@ -730,18 +795,53 @@ class Problem:
         remainder through :func:`~ops.stencil_gp.gp_step`; D/N edges take
         the boundary GP kernel per step, other states the plain GP step.
         Syncs q and the constitutive fields afterwards.
+
+        Elastic problems take the GP x elastic loop
+        (:func:`core.ehl.make_gp_ehl_loop`, pass-2 protocol; the GP kernel
+        with its pressure output where covered), ``deform_every`` FFT
+        updates apart; adaptive dt carries dt through the loop
+        (:func:`core.gp_step.make_gp_adaptive_loop` without elastic
+        coupling).
         """
         if not self.has_gp_model:
             raise RuntimeError("run_steps_gp_fast requires GP surrogates")
         if self.step is None:
             self._pre_run()
+        adaptive = bool(self.numerics["adaptive"])
         gp_state, dims3, use3, nf = self._frozen_gp_state(capacity)
         cfg = self._solver_cfg
-        step_core = make_gp_step_core(cfg, dims3, nf, use3, need_p=False)
 
         q = self._tensor(self.q)
         topo = self._tensor(self.topo.full)
         extra = self._tensor(self.fc.get_real_field("extra").p)
+
+        if self.topo.elastic:
+            ed = self.topo.ElasticDeformation
+            loop = make_gp_ehl_loop(self, dims3, nf, use3,
+                                    deform_every=(1 if adaptive
+                                                  else deform_every),
+                                    adaptive=adaptive)
+            out = loop(q, ed.u_prev, topo, self.dt, self.step, n, gp_state)
+            t_inc = None
+            if adaptive:
+                q, u, dt_new, t_inc = out
+                self.dt = float(dt_new)
+                t_inc = float(t_inc)
+            else:
+                q, u = out
+            self._sync_deformation(u)
+            self._sync_gp_fast_tail(q, n, simtime_inc=t_inc)
+            return
+
+        if adaptive:
+            loop = make_gp_adaptive_loop(cfg, dims3, nf, use3, int(n))
+            q, dt_new, t_inc = loop(q, topo, extra, self.dt, self.step,
+                                    gp_state)
+            self.dt = float(dt_new)
+            self._sync_gp_fast_tail(q, n, simtime_inc=float(t_inc))
+            return
+
+        step_core = make_gp_step_core(cfg, dims3, nf, use3, need_p=False)
         dt = float(self.dt)
 
         if step_core.route(q) == "gp_step":
@@ -788,17 +888,104 @@ class Problem:
         use3 = tuple(m.is_gp_model for m in self._surrogates())
         return gp_state, dims3, use3, db.num_features
 
-    def _sync_gp_fast_tail(self, q, n):
+    def _sync_gp_fast_tail(self, q, n, simtime_inc=None):
         """Host sync after a frozen-GP run: write q back and refresh the
         constitutive fields through the host predict path (cached dense
-        conditioning)."""
+        conditioning).  ``simtime_inc``: the run's simulated time
+        (adaptive dt), else ``n * dt``."""
         self.q[...] = q.cpu().numpy()
         for m in self._surrogates():
             m.update(predictor=False, compute_var=False)
             m._step += n
         self.bulk_stress.update()
         self.step += n
+        self.simtime += n * self.dt if simtime_inc is None else simtime_inc
+
+    def _sync_deformation(self, u):
+        """The relaxed deformation state ``u`` (unshifted, ghost-inclusive
+        tensor) into the half-space's ``u_prev`` (in its dtype) and the
+        topography: the deformation shifted by u[0, 0] for half/none
+        periodicity, and the gap with fresh gradients (``h`` setter)."""
+        ed = self.topo.ElasticDeformation
+        ed.u_prev = u.to(ed.u_prev.dtype)
+        u = u.cpu().numpy()
+        shift = u[0, 0] if ed.periodicity in ("half", "none") else 0.
+        self.topo.deformation = u - shift
+        self.topo.h = self.topo.h_undeformed + (u - shift)
+
+    # ------------------------------------------------------------------
+    # Elastic (EHL) paths
+    # ------------------------------------------------------------------
+
+    def run_steps_ehl(self, n, deform_every=1, dtype=None):
+        """Advance ``n`` fixed-dt steps of a deterministic elastic problem
+        through :func:`core.ehl.make_ehl_loop` (end-of-step pressure).
+
+        ``deform_every=1`` evaluates the elastic FFT every fluid step (the
+        reference protocol); a larger ``deform_every`` chunks the updates
+        with the compounded relaxation factor (same fixed point).  On a
+        CUDA problem of a fully periodic configuration without thinning,
+        the fluid step is the EHL kernel K8 (float32, the interior Kahan
+        carry, which starts at zero on every call).  Adaptive numerics
+        delegate to :meth:`_run_steps_ehl_pass2`.  Syncs q, the
+        deformation state, the topography and the pressure field.
+        """
+        if not self.topo.elastic:
+            raise RuntimeError("run_steps_ehl requires an elastic problem")
+        if self.has_gp_model:
+            raise RuntimeError("run_steps_ehl covers deterministic "
+                               "constitutive models only")
+        if self.step is None:
+            self._pre_run()
+        if self.numerics["adaptive"]:
+            self._run_steps_ehl_pass2(n)
+            return
+
+        loop = make_ehl_loop(self, dtype=dtype, deform_every=deform_every)
+        q, u = loop(self._tensor(self.q), self.topo.ElasticDeformation.u_prev,
+                    self.dt, n)
+        self.q[...] = q.cpu().numpy()
+        self._sync_deformation(u)
+        self.fc.get_real_field("pressure").p[...] = eos_pressure(
+            self._tensor(self.q[0]), self._solver_cfg.prop).cpu().numpy()
+        self.step += n
         self.simtime += n * self.dt
+
+    def _run_steps_ehl_pass2(self, n, allow_pallas=True):
+        """Advance a deterministic elastic problem ``n`` steps on the
+        device with the host ``update()`` protocol: deformation from the
+        pass-2 pressure, the first step on the host topography (analytic
+        gradients until the first ``topo.update()``), dt refreshed every
+        step for adaptive numerics.  Drives
+        :func:`core.ehl.make_gp_ehl_loop` with every surrogate
+        deterministic, so on a covered float32 CUDA state each step is the
+        GP kernel K5 without surrogates (``allow_pallas=False``: the plain
+        step).  :meth:`run` takes this route."""
+        if not self.topo.elastic or self.has_gp_model:
+            raise RuntimeError("_run_steps_ehl_pass2 covers deterministic "
+                               "elastic problems")
+        if self.step is None:
+            self._pre_run()
+        adaptive = bool(self.numerics["adaptive"])
+        nf = 6 + self.fc.get_real_field("extra").p.shape[0]
+        loop = make_gp_ehl_loop(self, (None, None, None), nf,
+                                (False, False, False), adaptive=adaptive,
+                                allow_pallas=allow_pallas)
+        ed = self.topo.ElasticDeformation
+        out = loop(self._tensor(self.q), ed.u_prev,
+                   self._tensor(self.topo.full), self.dt, self.step, n,
+                   {"Xscale": torch.ones(nf, dtype=self.dtype,
+                                         device=self.device)})
+        q, u = out[:2]
+        self.q[...] = q.cpu().numpy()
+        self._sync_deformation(u)
+        self._refresh_det_fields()
+        self.step += n
+        if adaptive:
+            self.simtime += float(out[3])
+            self.dt = float(out[2])
+        else:
+            self.simtime += n * self.dt
 
     # ------------------------------------------------------------------
     # I/O
@@ -817,6 +1004,9 @@ class Problem:
         if fields:
             self.file.append_frame().write()
             self._last_written_step = self.step
+
+        if self.topo.elastic:
+            self.topofile.append_frame().write()
 
     # ------------------------------------------------------------------
     # Helpers

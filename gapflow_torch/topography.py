@@ -1,13 +1,14 @@
 """Gap topography: midpoint grids, analytic height profiles, elastic coupling.
 
 Counterpart of :mod:`gapflow_tpu.topography` (same geometry families,
-ghost-cell midpoint grid and flip semantics).  The elastic half-space is
-not ported yet (ROADMAP queue 1, slice 9): an elastic configuration
-raises ``NotImplementedError``.
+ghost-cell midpoint grid, flip semantics and elastic update protocol,
+reference GaPFlow/topography.py:38-324); the elastic half-space itself
+lives in :mod:`gapflow_torch.elastic`.
 """
 
 import numpy as np
 
+from .elastic import ElasticDeformation
 from .fields import wrap_field
 
 
@@ -126,13 +127,16 @@ _PROFILES_1D = {
 
 
 class Topography:
-    """Container for the (rigid) gap profile.
+    """Container for the (possibly deforming) gap profile.
 
     Field layout: component 0 = h, 1 = dh/dx, 2 = dh/dy, 3 = elastic
-    deformation (reference GaPFlow/problem.py:141).
+    deformation (reference GaPFlow/problem.py:141).  An elastic
+    configuration's half-space constants and relaxed deformation state
+    live on ``device``, the state in ``dtype`` (:data:`gapflow_torch.DTYPE`
+    unless given).
     """
 
-    def __init__(self, fc, grid, geo, prop):
+    def __init__(self, fc, grid, geo, prop, device="cpu", dtype=None):
         xx, yy = create_midpoint_grid(grid)
 
         self.__field = wrap_field(fc.get_real_field("topography"))
@@ -161,15 +165,49 @@ class Topography:
             ix, iy = 2, 1
 
         if prop["elastic"]["enabled"]:
-            raise NotImplementedError(
-                "elastic deformation is not ported to gapflow_torch yet "
-                "(ROADMAP queue 1, slice 9); run it with gapflow_tpu")
-        self.elastic = False
+            self.elastic = True
+            self.h_undeformed = h.copy()
+            self.__pressure = wrap_field(fc.get_real_field("pressure"))
+            self.ElasticDeformation = ElasticDeformation(
+                E=prop["elastic"]["E"],
+                v=prop["elastic"]["v"],
+                alpha_underrelax=prop["elastic"]["alpha_underrelax"],
+                grid=grid,
+                n_images=prop["elastic"]["n_images"],
+                fft_grid=prop["elastic"].get("fft_grid", "interior"),
+                device=device,
+                dtype=dtype,
+            )
+        else:
+            self.elastic = False
 
         self.__field.p[0] = h
         self.__field.p[ix] = dh_dx
         self.__field.p[iy] = dh_dy
         self.__field.p[3] = 0.
+
+    def update(self):
+        """Recompute the elastic deformation from the current pressure
+        field (under-relaxed; shifted by its [0, 0] value for half/none
+        periodicity)."""
+        if not self.elastic:
+            return
+        ed = self.ElasticDeformation
+        if ed.periodicity in ("half", "none"):
+            p = self.__pressure.p - self.__pressure.p[0, 0]
+            deformation = ed.get_deformation_underrelax(p).cpu().numpy()
+            deformation = deformation - deformation[0, 0]
+        else:
+            deformation = ed.get_deformation_underrelax(
+                self.__pressure.p).cpu().numpy()
+        self.deformation = deformation
+        self.h = self.h_undeformed + deformation
+
+    def update_gradients(self):
+        """Second-order central-difference height gradients."""
+        h = self.__field.p[0]
+        self.__field.p[1] = np.gradient(h, axis=0) / self.dx
+        self.__field.p[2] = np.gradient(h, axis=1) / self.dy
 
     @property
     def full(self):
@@ -180,9 +218,18 @@ class Topography:
     def h(self):
         return self.__field.p[0]
 
+    @h.setter
+    def h(self, value):
+        self.__field.p[0] = value
+        self.update_gradients()
+
     @property
     def deformation(self):
         return self.__field.p[3]
+
+    @deformation.setter
+    def deformation(self, value):
+        self.__field.p[3] = value
 
     @property
     def dh_dx(self):

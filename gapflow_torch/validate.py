@@ -10,7 +10,9 @@ Counterpart of the deterministic checks of :mod:`gapflow_tpu.validate`:
   its per-step increments fall below one ulp of the density);
 - :func:`synthetic_gp_state` and :func:`gp_kernel_parity`: a
   well-conditioned padded GP state, and the GP kernel against the plain
-  GP step on it.
+  GP step on it;
+- :func:`ehl_kernel_bitexact`: the compensated EHL kernel against its
+  ``emit_delta`` form plus an explicit Kahan two-sum.
 """
 
 import numpy as np
@@ -105,6 +107,26 @@ def journal_yaml(nx, ny, grid="", props=DH, dx=2e-5, dt=5e-11, tol=1e-30,
             f"numerics: {{CFL: 0.5, adaptive: 0, tol: {tol}, dt: {dt}, "
             f"max_it: {max_it}}}\n"
             f"properties: {{shear: 0.0794, bulk: 0., {props}}}\n")
+
+
+#: The elastic block of the EHL journal (bench.py bench_ehl_step and
+#: bench_gp_ehl): a 5 GPa half-space, under-relaxation 1e-4.
+EHL_ELASTIC = "elastic: {E: 5e09, v: 0.3, alpha_underrelax: 1e-04}"
+
+
+def ehl_yaml(nx, ny, V=0., max_it=1000000, out="data/val_ehl"):
+    """The EHL journal of the JAX package's benchmark (bench.py
+    bench_ehl_step; ``V=0.05`` as bench_gp_ehl): silent, fixed dt 5e-11,
+    fully periodic, DH, with the half-space of :data:`EHL_ELASTIC`."""
+    return (f"options: {{output: {out}, write_freq: 1000000, "
+            "silent: True}\n"
+            f"grid: {{dx: 2.e-5, dy: 2.e-5, Nx: {nx}, Ny: {ny}}}\n"
+            "geometry: {type: journal, CR: 1.e-2, eps: 0.7, U: 0.1, "
+            f"V: {V}}}\n"
+            "numerics: {CFL: 0.25, adaptive: 0, tol: 1e-30, dt: 5e-11, "
+            f"max_it: {max_it}}}\n"
+            f"properties: {{shear: 0.0794, bulk: 0., {DH}, "
+            f"{EHL_ELASTIC}}}\n")
 
 
 def perturbed_q(q, seed=0, amp=0.01):
@@ -270,3 +292,54 @@ def gp_kernel_parity(problem, cap=16, seed=0):
     else:
         qk, p_err = gp_step_bc(q, st, dt, cfg, ops), None
     return kernel_vs_plain_err(qk, qr), p_err
+
+
+def ehl_inputs(problem, seed=7, u_amp=1e-9):
+    """Inputs of the EHL kernel on a perturbed state of ``problem`` (any
+    periodic Problem; its gap serves as the undeformed height), float32
+    on its device: interior q, the deformed interior gap, the slip
+    length, the patches ``px``, ``py``, the deformation ``u ~ u_amp
+    N(0, 1)`` (numpy, ``seed``) and dt."""
+    from .ops.stencil import ehl_patches
+    dev, f32 = problem.device, torch.float32
+    problem._pre_run()
+    q = perturbed_state(problem).q.to(f32)[:, 1:-1, 1:-1].contiguous()
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.standard_normal(problem.topo.h.shape) * u_amp,
+                        dtype=f32, device=dev)
+    h_full = torch.as_tensor(problem.topo.h, dtype=f32, device=dev) + u
+    ls = torch.as_tensor(problem.fc.get_real_field("extra").p[0, 1:-1, 1:-1],
+                         dtype=f32, device=dev).contiguous()
+    px, py = ehl_patches(h_full, problem._solver_cfg)
+    return (q, h_full[1:-1, 1:-1].contiguous(), ls, px, py, u,
+            float(np.float32(problem.dt)))
+
+
+def ehl_kernel_bitexact(n_steps=4, nx=256, ny=128, device="cuda"):
+    """The compensated EHL kernel (:func:`ops.stencil.ehl_comp_step`)
+    against the ``emit_delta`` EHL kernel plus an explicit Kahan two-sum
+    in torch, ``n_steps`` steps on a perturbed journal with a deformation
+    ``u ~ 1e-9 N(0, 1)`` (numpy seed 7).  The two share their arithmetic;
+    built with ``--fmad=false`` they agree bit for bit, and ``ok`` allows
+    up to 1e-6 of the state's magnitude."""
+    from .ops.stencil import ehl_comp_step, ehl_step
+    problem = journal_problem(nx=nx, ny=ny, device=device)
+    cfg = problem._solver_cfg
+    q0, h_int, ls, px, py, _, dt = ehl_inputs(problem)
+
+    qr, lo = q0, torch.zeros_like(q0)
+    for _ in range(n_steps):
+        delta = ehl_step(qr, h_int, ls, px, py, dt, cfg, emit_delta=True)
+        y = delta + lo
+        t = qr + y
+        qr, lo = t, y - (t - qr)
+
+    qk, lk = q0, torch.zeros_like(q0)
+    for _ in range(n_steps):
+        qk, lk = ehl_comp_step(qk, lk, h_int, ls, px, py, dt, cfg)
+
+    dq = float((qk - qr).abs().max())
+    dl = float((lk - lo).abs().max())
+    scale = float(qr.abs().max())
+    return {"q_maxdiff": dq, "lo_maxdiff": dl,
+            "ok": bool(dq <= 1e-6 * scale and dl <= 1e-6 * scale)}

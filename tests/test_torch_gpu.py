@@ -265,3 +265,86 @@ def test_gp_run_takes_the_kernels(cuda, tmp_path, al, route, kernel):
     assert G.LAUNCHES[kernel] == 8
     assert sum(G.LAUNCHES.values()) == 8 and sum(S.LAUNCHES.values()) == 0
     assert np.isfinite(p.q).all() and (p.q[0] > 0).all()
+
+
+# -- the EHL kernel K8 ---------------------------------------------------------
+
+def _ehl_problem(nx=40, ny=72, max_it=1000000):
+    from gapflow_torch.validate import ehl_yaml
+    return Problem.from_string(ehl_yaml(nx, ny, max_it=max_it,
+                                        out="data/torch_gpu"),
+                               device="cuda", dtype=torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("emit_delta", [False, True])
+def test_ehl_step_matches_twin(cuda, emit_delta):
+    """Ragged tiles, a journal deformed by u ~ 1e-9 N(0, 1) drawn on the
+    ghost-inclusive grid (its ghost ring is no wrap of the interior)."""
+    from gapflow_torch.validate import ehl_inputs
+    p = _ehl_problem()
+    cfg = p._solver_cfg
+    q, h, ls, px, py, _, dt = ehl_inputs(p)
+    S.reset_launches()
+    out = S.ehl_step(q, h, ls, px, py, dt, cfg, emit_delta=emit_delta)
+    assert S.LAUNCHES["ehl_step"] == 1
+    ref = S.ehl_step_ref(q, h, ls, px, py, dt, cfg, emit_delta=emit_delta)
+    assert kernel_vs_plain_err(out, ref) < 1e-5
+
+
+@pytest.mark.gpu
+def test_ehl_comp_step_matches_twin_and_identity(cuda):
+    """The compensated step against its twin, and against the emit_delta
+    kernel plus an explicit two-sum (bit for bit with --fmad=false)."""
+    from gapflow_torch.validate import ehl_inputs, ehl_kernel_bitexact
+    p = _ehl_problem()
+    cfg = p._solver_cfg
+    q, h, ls, px, py, _, dt = ehl_inputs(p)
+    lo = torch.zeros_like(q)
+    qk, lk = S.ehl_comp_step(q, lo, h, ls, px, py, dt, cfg)
+    qr, lr = S.ehl_comp_step_ref(q, lo, h, ls, px, py, dt, cfg)
+    assert kernel_vs_plain_err(qk, qr) < 1e-5
+    assert float((lk - lr).abs().max()) <= 1e-6 * float(qr.abs().max())
+    assert torch.equal(lo, torch.zeros_like(q))     # inputs untouched
+    r = ehl_kernel_bitexact(n_steps=4, nx=40, ny=72)
+    assert r["ok"], r
+
+
+@pytest.mark.gpu
+def test_ehl_wrapper_rejects_thinning_and_float64(cuda):
+    from gapflow_torch.validate import ehl_inputs
+    p = _ehl_problem()
+    q, h, ls, px, py, _, dt = ehl_inputs(p)
+    with pytest.raises(TypeError):
+        S.ehl_step(q.double(), h.double(), ls.double(), px.double(),
+                   py.double(), dt, p._solver_cfg)
+    thin = _problem("", BC_CASES["periodic_eyring"][1])._solver_cfg
+    with pytest.raises(ValueError):
+        S.ehl_step(q, h, ls, px, py, dt, thin)
+
+
+@pytest.mark.gpu
+def test_run_steps_ehl_launches_k8_per_step(cuda):
+    p = _ehl_problem()
+    p._pre_run()
+    S.reset_launches()
+    G.reset_launches()
+    p.run_steps_ehl(6)
+    assert S.LAUNCHES["ehl_comp_step"] == 6
+    assert sum(S.LAUNCHES.values()) == 6 and sum(G.LAUNCHES.values()) == 0
+    assert np.isfinite(p.q).all() and p.step == 6
+    assert np.abs(p.topo.deformation).max() > 0.
+
+
+@pytest.mark.gpu
+def test_run_takes_the_pass2_route_through_k5(cuda):
+    """Problem.run() on a silent elastic problem: the pass-2 route, one
+    GP-kernel step without surrogates per step."""
+    p = _ehl_problem(max_it=5)
+    S.reset_launches()
+    G.reset_launches()
+    p.run()
+    assert p._route == "ehl_pass2" and p.step == 5
+    assert G.LAUNCHES == {**G.LAUNCHES, "gp_step": 5}
+    assert sum(G.LAUNCHES.values()) == 5 and sum(S.LAUNCHES.values()) == 0
+    assert np.isfinite(p.q).all()

@@ -144,6 +144,17 @@ def test_cuda_without_cuda_raises():
 @pytest.mark.parametrize("name", [
     "journal_1d_dowson-higginson_gp.yaml", "parabolic_1d_elastic.yaml"])
 def test_unported_features_raise(name):
+    """A non-silent GP configuration raises, naming its ROADMAP item.  The
+    elastic configuration, which raised the same way until the elastic
+    slice was ported, now builds a Problem with its half-space (made
+    silent here, so that it writes no output)."""
+    path = ROOT / "examples" / "config" / name
+    if name == "parabolic_1d_elastic.yaml":
+        text = path.read_text().replace("use_tstamp: True",
+                                        "use_tstamp: True\n    silent: True")
+        p = Problem.from_string(text, device="cpu")
+        assert p.topo.elastic
+        assert p.topo.ElasticDeformation.periodicity == "full"
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Problem.from_yaml(str(ROOT / "examples" / "config" / name),
-                          device="cpu")
+        Problem.from_yaml(str(path), device="cpu")
