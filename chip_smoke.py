@@ -16,7 +16,12 @@ agree on a run (deterministic and GP), drives the elastic (EHL) paths
 elastic with frozen surrogates, the flagship rough-surface EHL GP
 configuration, adaptive dt on the device), checks the physics against
 the analytic Sommerfeld solution, and holds each kernel against its twin
-again on the main paths' 1024² inputs before timing both.  Any failed
+again on the main paths' 1024² inputs before timing both.  The plain
+(uncompensated) whole-run kernels are held bit for bit against K1 and
+K3 launched once per step (2i), then drive bench.py's FV throughput run
+(3o: the whole run in one launch at 512², temporally blocked sweeps at
+1024² and 2048², each beside K1 once per step) and the plain boundary
+paths (3p).  Any failed
 phase raises, which exits non-zero before the result line.
 Without CUDA, or without the package beside it, the script fails the
 same way.
@@ -47,6 +52,17 @@ ROUTE_TOL = 1e-4      # scaled max difference, kernel run vs plain-step run
 # error); the Kahan carry must bring the kernel route well inside it.
 COMP_ROUTE_TOL = 3e-4
 SOMMERFELD_TOL = 0.02
+# phase 2i: a k-step kernel against k launches of K1 or K3 on the same
+# inputs.  They are expected equal bit for bit (the same operations in
+# the same order); a difference is printed and held to this, scaled.
+SAME_TOL = 1e-6
+# phase 3o: bench.py bench_fv_step (journal, DH, dx 2e-5, dt 1e-11, tol
+# 1e-30): run_steps_fast(FV_STEPS, compensated=False) at each size, a
+# warm-up and 3 timed calls; FV_REM_STEPS adds one remainder launch
+FV_STEPS = 5000
+FV_SIZES = (512, 1024, 2048)
+FV_REM_STEPS = 5003
+PLAIN_ROUTE_STEPS = 100  # phase 3p: route agreement at 256²
 THINNING_ENGAGED = 0.9   # phase 3c: the thinning factor must fall below
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM published peak
 # float32 adds and multiplies: one per lane and clock, 128 lanes per SM,
@@ -116,7 +132,8 @@ grid: {{Lx: 1470., Ly: 1470., Nx: {n}, Ny: {n}, xE: ['D', 'N', 'N'],
         xE_D: 0.8, xW_D: 0.8, yS_D: 0.8, yN_D: 0.8}}
 geometry: {{type: asperity, hmin: 12., hmax: 60., num: 2, seed: 0, U: 0.12,
            V: 0.06}}
-numerics: {{CFL: 0.5, adaptive: 1, tol: 1e-30, dt: 0.05, max_it: {max_it}}}
+numerics: {{CFL: 0.5, adaptive: {adaptive}, tol: 1e-30, dt: 0.05,
+           max_it: {max_it}}}
 properties: {{shear: 2.15, bulk: 0., EOS: BWR, T: 1.0, rho0: 0.8,
              thinning: {{name: Eyring, tauE: {tauE}}}}}
 """
@@ -131,8 +148,9 @@ def inclined_yaml(n, max_it, adaptive=1, dt=1e-10):
     return _INCLINED.format(n=n, max_it=max_it, adaptive=adaptive, dt=dt)
 
 
-def asperity_yaml(n, max_it, tauE=ASPERITY_TAUE):
-    return _ASPERITY.format(n=n, max_it=max_it, tauE=tauE)
+def asperity_yaml(n, max_it, tauE=ASPERITY_TAUE, adaptive=1):
+    return _ASPERITY.format(n=n, max_it=max_it, tauE=tauE,
+                            adaptive=adaptive)
 
 
 def problem(text, dtype=None):
@@ -140,10 +158,15 @@ def problem(text, dtype=None):
     return Problem.from_string(text, device=DEVICE, dtype=dtype)
 
 
-def journal(nx, ny, grid="", props=None, dt=5e-11, max_it=1000000):
+def journal_yaml_for(nx, ny=None, grid="", props=None, dt=5e-11,
+                     max_it=1000000):
     from gapflow_torch.validate import DH, journal_yaml
-    return problem(journal_yaml(nx, ny, grid, props or DH, dt=dt,
-                                max_it=max_it, out="data/smoke"))
+    return journal_yaml(nx, nx if ny is None else ny, grid, props or DH,
+                        dt=dt, max_it=max_it, out="data/smoke")
+
+
+def journal(nx, ny, grid="", props=None, dt=5e-11, max_it=1000000):
+    return problem(journal_yaml_for(nx, ny, grid, props, dt, max_it))
 
 
 def kernel_inputs(p, amp, seed=0, ghosted=False):
@@ -1132,6 +1155,329 @@ def adaptive_check(err):
 
 
 
+# -- the plain whole-run path ------------------------------------------------
+
+def check_same(label, out, ref):
+    """A k-step kernel against k launches of the one-step kernel: equal
+    bit for bit, else the difference is printed and held to SAME_TOL."""
+    torch.cuda.synchronize()
+    if torch.equal(out, ref):
+        print(f"  {label}: equal bit for bit")
+        return
+    err, abs_err = errors(label, out, ref)
+    print(f"  {label}: NOT equal bit for bit: max scaled diff {err:.3e}, "
+          f"max abs diff {abs_err:.3e}")
+    if not err < SAME_TOL:
+        raise RuntimeError(f"{label}: scaled diff {err} >= {SAME_TOL}")
+
+
+def plain_kernel_checks(err):
+    """Phase 2i: plain_steps (k = 1..4), plain_run (n = 9) and
+    plain_steps_bc (k = 1.._k_steps on BC_CASES) against K1/K3 launched
+    once per step and against their twins; a refused cooperative launch
+    raises."""
+    from gapflow_torch.ops import stencil as S
+    from gapflow_torch.validate import BC_CASES
+    for key in ("plain_steps", "plain_steps_rem", "plain_run",
+                "plain_steps_bc"):
+        err[key] = 0.
+    p = journal(N_CHECK, N_CHECK)
+    cfg = p._solver_cfg
+    q, st, dt = kernel_inputs(p, amp=0.01)
+    ref = q
+    for k in range(1, S.K_MULTI + 1):
+        ref = S.fused_step(ref, st, dt, cfg)
+        out = S.plain_steps(q, st, dt, cfg, k)
+        check_same(f"plain_steps k={k} vs {k} x K1", out, ref)
+        key = "plain_steps" if k == S.K_MULTI else "plain_steps_rem"
+        err[key] = max(err[key], check(
+            f"plain_steps k={k} vs twin", out,
+            S.plain_steps_ref(q, st, dt, cfg, k)))
+    ref = q
+    for _ in range(9):
+        ref = S.fused_step(ref, st, dt, cfg)
+    out = S.plain_run(q, st, dt, cfg, 9)
+    check_same("plain_run n=9 vs 9 x K1", out, ref)
+    err["plain_run"] = check("plain_run n=9 vs twin", out,
+                             S.plain_run_ref(q, st, dt, cfg, 9))
+    try:
+        S.plain_run(q, st, dt, cfg, 2, blocks=1 << 20)
+    except RuntimeError as e:
+        print(f"  plain_run on 2^20 blocks refused, as it must be: {e}")
+    else:
+        raise RuntimeError("a cooperative launch of 2^20 blocks ran")
+    for case, (grid, props) in BC_CASES.items():
+        pb = journal(N_CHECK, N_CHECK, grid, props, dt=2e-11)
+        cfg = pb._solver_cfg
+        q, st, dt = kernel_inputs(pb, amp=0.01, ghosted=True)
+        ref = q
+        for k in range(1, S._k_steps(cfg) + 1):
+            ref = S.fused_step_bc(ref, st, dt, cfg)
+            out = S.plain_steps_bc(q, st, dt, cfg, k)
+            check_same(f"plain_steps_bc {case} k={k} vs {k} x K3", out, ref)
+            err["plain_steps_bc"] = max(err["plain_steps_bc"], check(
+                f"plain_steps_bc {case} k={k} vs twin", out,
+                S.plain_steps_bc_ref(q, st, dt, cfg, k)))
+
+
+def k1_run_steps(p, n):
+    """run_steps_fast's body with K1 launched once per step in place of
+    the plain route (the loop the port ran before the plain kernels), for
+    the record."""
+    from gapflow_torch.ops.stencil import (fused_step, interior_statics,
+                                           with_ghosts)
+    q = p._tensor(p.q).float()
+    st = interior_statics(p.topo.full, p.fc.get_real_field("extra").p,
+                          torch.float32, q.device)
+    q_int = q[:, 1:-1, 1:-1].contiguous()
+    for _ in range(n):
+        q_int = fused_step(q_int, st, p.dt, p._solver_cfg)
+    p.q[...] = with_ghosts(q_int, p._solver_cfg).cpu().numpy()
+    p.step += n
+
+
+def timed_runs(label, p, run, n, want, reps=3):
+    """A warm-up, then ``reps`` timed calls of ``run(p, n)``, each with
+    the launch counts set to 0 just before it and checked against
+    ``want`` just after.  Returns (median wall s, launches)."""
+    cells = p.grid["Nx"] * p.grid["Ny"]
+    run(p, n)
+    walls = []
+    for _ in range(reps):
+        reset_all()
+        t0 = time.perf_counter()
+        run(p, n)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        expect_launches(label, want)
+    wall = sorted(walls)[len(walls) // 2]
+    if not (np.isfinite(p.q).all() and (p.q[0] > 0).all()):
+        raise RuntimeError(f"{label}: non-finite q or rho <= 0")
+    print(f"  {label}: launches {want}, walls "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s, median {wall:.4f} s, "
+          f"{cells * n / wall:.4e} cell-updates/s")
+    return wall, want
+
+
+def fv_throughput(launches):
+    """Phase 3o: bench.py bench_fv_step through run_steps_fast(FV_STEPS,
+    compensated=False) at each of FV_SIZES (the whole run in one Kv
+    launch where it fits the L2 cache, else K2p sweeps), then the same
+    calls through K1 launched once per step; the two routes' final states
+    compared.  A run of FV_REM_STEPS at N x N adds a remainder launch."""
+    from gapflow_torch.ops import stencil as S
+    from gapflow_torch.validate import kernel_vs_plain_err
+
+    def plain(p, n):
+        p.run_steps_fast(n, compensated=False)
+
+    for n in FV_SIZES:
+        pk = journal(n, n, dt=1e-11)
+        pk._pre_run()
+        entry, k, n_sweeps, n_rem = S._plain_route(
+            pk._solver_cfg, n, n, FV_STEPS, DEVICE)
+        want = ({"plain_run": 1} if entry == "plain_run"
+                else {"plain_steps": n_sweeps,
+                      **({"plain_steps_rem": 1} if n_rem else {})})
+        _, got = timed_runs(f"{n}x{n} plain route ({entry})", pk, plain,
+                            FV_STEPS, want)
+        for key, v in got.items():
+            if n == N or key == "plain_run":
+                launches[key] = v
+        p1 = journal(n, n, dt=1e-11)
+        p1._pre_run()
+        timed_runs(f"{n}x{n} K1 once per step", p1, k1_run_steps, FV_STEPS,
+                   {"fused_step": FV_STEPS})
+        diff = kernel_vs_plain_err(torch.as_tensor(pk.q),
+                                   torch.as_tensor(p1.q))
+        print(f"  {n}x{n}: after {4 * FV_STEPS} steps, plain route vs K1 "
+              f"once per step: max scaled diff {diff:.3e}")
+        if not diff < SAME_TOL:
+            raise RuntimeError(f"{n}x{n}: routes differ by {diff}")
+    pr = journal(N, N, dt=1e-11)
+    pr._pre_run()
+    _, got = timed_runs(f"{N}x{N} plain route, {FV_REM_STEPS} steps", pr,
+                        plain, FV_REM_STEPS,
+                        {"plain_steps": FV_REM_STEPS // S.K_MULTI,
+                         "plain_steps_rem": 1}, reps=1)
+    launches["plain_steps_rem"] = got["plain_steps_rem"]
+
+
+def plain_bc_paths(launches):
+    """Phase 3p: run_steps_fast(compensated=False) on 3b's inclined slider
+    and 3c's Eyring asperity at N x N, fixed dt: K3p sweeps of 4 and of 2
+    steps, K3 for the remainder."""
+    def plain(p, n):
+        p.run_steps_fast(n, compensated=False)
+
+    pb = problem(inclined_yaml(N, 1000000, adaptive=0, dt=1e-10))
+    pb._pre_run()
+    _, got = timed_runs(f"inclined slider {N}x{N}, D/N x edges, 1002 steps",
+                        pb, plain, 1002,
+                        {"plain_steps_bc": 250, "fused_step_bc": 2})
+    launches["plain_steps_bc"] = got["plain_steps_bc"]
+    pa = problem(asperity_yaml(N, 1000000, adaptive=0))
+    pa._pre_run()
+    timed_runs(f"asperity {N}x{N}, D/N on four edges, Eyring, 1001 steps",
+               pa, plain, 1001, {"plain_steps_bc": 500, "fused_step_bc": 1})
+
+
+def plain_route_check():
+    """Phase 3p: the plain kernel route against the f32 plain step after
+    PLAIN_ROUTE_STEPS steps at 256²: Kv on the journal, K3p on the
+    inclined slider and, with Barus and Eyring thinning, on the journal's
+    D/N x edges.  From each configuration's own initial state the two
+    are held to ROUTE_TOL (as phase 3e holds K3 once per step).  From
+    that state perturbed by relative density noise 1e-3 (seed 0) the two
+    f32 routes part by their closures' rounding, so each is measured
+    against the plain step run in float64, the kernel route held to
+    twice the f32 plain step's own distance.  K3p on the BWR + Eyring
+    asperity is printed beside the f32 plain step's distance after a
+    one-ulp nudge of the density (that model amplifies last-bit
+    differences by orders of magnitude within a few steps, PERF.md).
+    Then validate.pallas_vs_xla_err."""
+    from gapflow_torch.validate import (BC_CASES, kernel_vs_plain_err,
+                                        pallas_vs_xla_err, perturbed_state)
+    n, steps = N_CHECK, PLAIN_ROUTE_STEPS
+
+    def run(make, route, amp=0., dtype=None):
+        p = make(dtype)
+        p._pre_run()
+        if amp:
+            p.q[...] = perturbed_state(p, seed=0, amp=amp).q.cpu().numpy()
+        if route == "nudged":
+            rho = p.q[0].astype(np.float32)
+            up = np.random.default_rng(0).random(rho.shape) < 0.5
+            p.q[0] = np.where(up, np.nextafter(rho, np.float32(1e30)),
+                              np.nextafter(rho, np.float32(-1e30)))
+        reset_all()
+        if route == "kernels":
+            p.run_steps_fast(steps, compensated=False)
+            torch.cuda.synchronize()
+        else:
+            p.run_steps(steps)
+        got = launched()
+        check_state(f"3p {route}", p, steps)
+        return torch.as_tensor(p.q, dtype=torch.float64), got
+
+    err = kernel_vs_plain_err
+    for label, make, want, held in (
+            ("journal", lambda dtype: problem(journal_yaml_for(n), dtype),
+             {"plain_run": 1}, True),
+            ("inclined slider", lambda dtype: problem(inclined_yaml(
+                n, 1000000, adaptive=0, dt=1e-9), dtype),
+             {"plain_steps_bc": steps // 4}, True),
+            ("journal D/N x, Barus + Eyring", lambda dtype: problem(
+                journal_yaml_for(n, n, *BC_CASES["dn_x_barus_eyring"],
+                                 dt=2e-11), dtype),
+             {"plain_steps_bc": steps // 2}, True),
+            ("asperity BWR + Eyring", lambda dtype: problem(asperity_yaml(
+                n, 1000000, adaptive=0), dtype),
+             {"plain_steps_bc": steps // 2}, False)):
+        qk, got = run(make, "kernels")
+        if got != want:
+            raise RuntimeError(f"3p {label}: launches {got}, expected {want}")
+        qp, got = run(make, "plain step")
+        if got:
+            raise RuntimeError(f"3p {label} plain step launched {got}")
+        d = err(qk, qp)
+        line = (f"  {label} {n}x{n}, {steps} steps: plain kernel route vs "
+                f"f32 plain step: max scaled diff {d:.3e}")
+        if not held:
+            qn, _ = run(make, "nudged")
+            print(f"{line}; the f32 plain step after a one-ulp nudge of "
+                  f"the density {err(qn, qp):.3e} (not held)")
+            continue
+        print(line)
+        if not (np.isfinite(d) and d < ROUTE_TOL):
+            raise RuntimeError(f"3p {label}: {d} >= {ROUTE_TOL}")
+        qk, _ = run(make, "kernels", 1e-3)
+        qp, _ = run(make, "plain step", 1e-3)
+        q64, _ = run(make, "plain step", 1e-3, torch.float64)
+        dk, dp = err(qk, q64), err(qp, q64)
+        print(f"    from the state perturbed by 1e-3: kernel route vs f32 "
+              f"plain step {err(qk, qp):.3e}; to the float64 plain step: "
+              f"kernel route {dk:.3e}, f32 plain step {dp:.3e}")
+        if not (np.isfinite(dk) and dk < 2 * dp):
+            raise RuntimeError(f"3p {label}: kernel route {dk} from float64, "
+                               f"f32 plain step {dp}")
+    reset_all()
+    e = pallas_vs_xla_err(device=DEVICE)
+    print(f"  validate.pallas_vs_xla_err() (journal 256x256, 8 steps, "
+          f"launches {launched()}): {e:.3e}")
+    if not e < TOL:
+        raise RuntimeError(f"pallas_vs_xla_err {e} >= {TOL}")
+
+
+def plain_kernel_times(n=N, reps=20, plain_reps=2):
+    """Phase 5: the plain whole-run kernels on the main paths' inputs,
+    each held against its twin, then timed; per step.  Returns
+    {kernel: max abs error}, {kernel: (ms, twin ms)} and {kernel:
+    (bound ms, bound by)}, and prints Kv at n x n forced beside its
+    main-path size."""
+    from gapflow_torch.ops import stencil as S
+    errs, times, bounds = {}, {}, {}
+    cells = n * n
+    tp = journal(n, n, dt=1e-11)
+    cfg = tp._solver_cfg
+    q, st, dt = kernel_inputs(tp, amp=0.01)
+    for key, k in (("plain_steps", S.K_MULTI),
+                   ("plain_steps_rem", FV_REM_STEPS % S.K_MULTI)):
+        errs[key] = check(f"{key} k={k} journal {n}x{n}",
+                          S.plain_steps(q, st, dt, cfg, k),
+                          S.plain_steps_ref(q, st, dt, cfg, k))
+        times[key] = (
+            time_ms(lambda: S.plain_steps(q, st, dt, cfg, k), reps) / k,
+            time_ms(lambda: S.plain_steps_ref(q, st, dt, cfg, k),
+                    plain_reps) / k)
+        b = bound((q, st), (q,), cells, k * OPS_PER_CELL)
+        bounds[key] = (b[0] / k, b[1])
+    run_n = 100
+    for m in (FV_SIZES[0], n):
+        if m == n:
+            qm, stm, dtm, cm = q, st, dt, cfg
+        else:
+            pm = journal(m, m, dt=1e-11)
+            qm, stm, dtm = kernel_inputs(pm, amp=0.01)
+            cm = pm._solver_cfg
+        e = check(f"plain_run n=4 journal {m}x{m}",
+                  S.plain_run(qm, stm, dtm, cm, 4),
+                  S.plain_run_ref(qm, stm, dtm, cm, 4))
+        ms = time_ms(lambda: S.plain_run(qm, stm, dtm, cm, run_n),
+                     3) / run_n
+        plain_ms = time_ms(lambda: S.plain_run_ref(qm, stm, dtm, cm, 2),
+                           plain_reps) / 2
+        b = bound((qm, stm), (qm,), m * m, run_n * OPS_PER_CELL)
+        fits = S._plain_run_fits(m, m, qm.device)
+        print(f"phase 5: plain_run {m}x{m} ({run_n} steps per launch; "
+              f"{'fits' if fits else 'exceeds'} the L2 gate): kernel "
+              f"{ms:.4f} ms/step, plain twin {plain_ms:.4f} ms/step, bound "
+              f"{b[0] / run_n:.4f} ms ({b[1]})")
+        if m == FV_SIZES[0]:
+            errs["plain_run"] = e
+            times["plain_run"] = (ms, plain_ms)
+            bounds["plain_run"] = (b[0] / run_n, b[1])
+    for label, text in (
+            ("plain_steps_bc", inclined_yaml(n, MAX_IT)),
+            ("plain_steps_bc (Eyring)", asperity_yaml(n, MAX_IT))):
+        pb = problem(text)
+        cfg = pb._solver_cfg
+        q, st, dt = kernel_inputs(pb, amp=0.01, ghosted=True)
+        k = S._k_steps(cfg)
+        errs[label] = check(f"{label} k={k} {n}x{n}",
+                            S.plain_steps_bc(q, st, dt, cfg, k),
+                            S.plain_steps_bc_ref(q, st, dt, cfg, k))
+        times[label] = (
+            time_ms(lambda: S.plain_steps_bc(q, st, dt, cfg, k), reps) / k,
+            time_ms(lambda: S.plain_steps_bc_ref(q, st, dt, cfg, k),
+                    plain_reps) / k)
+        b = bound((q, st), (q,), cells, k * OPS_PER_CELL)
+        bounds[label] = (b[0] / k, b[1])
+    errs["plain_steps_bc"] = max(errs["plain_steps_bc"],
+                                 errs.pop("plain_steps_bc (Eyring)"))
+    return errs, times, bounds
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1287,6 +1633,11 @@ def main():
     if not ident["ok"]:
         raise RuntimeError(f"K8 identity: {ident}")
 
+    print(f"phase 2i: plain whole-run kernels vs K1/K3 launched once per "
+          f"step and vs their twins ({N_CHECK} x {N_CHECK} journal, "
+          f"BC_CASES, amplitude 0.01)")
+    plain_kernel_checks(err)
+
     # -- phase 3: the main paths ------------------------------------------
     n, max_it = N, MAX_IT
     print(f"phase 3: Problem.run(), silent float32 journal {n} x {n}, "
@@ -1334,19 +1685,19 @@ def main():
           "1e-9, 200 steps: run_compiled_fast vs run_compiled (f32 on the "
           "card)")
     runs = {}
-    for route, comp, expect in (("run_compiled_fast", False, "fused_step_bc"),
-                                ("run_compiled_fast", True, "comp_step_bc"),
-                                ("run_compiled", None, None)):
+    for route, comp, expect in (
+            ("run_compiled_fast", False, {"plain_steps_bc": 50}),
+            ("run_compiled_fast", True, {"comp_step_bc": 200}),
+            ("run_compiled", None, {})):
         pr = problem(inclined_yaml(128, 200, adaptive=0, dt=1e-9))
         pr._pre_run()
         S.reset_launches()
         getattr(pr, route)(**({} if comp is None else {"compensated": comp}))
         label = route if comp is None else f"{route} compensated={comp}"
-        print(f"  {label}: launches "
-              f"{ {k: v for k, v in S.LAUNCHES.items() if v} }")
-        if sum(S.LAUNCHES.values()) != (200 if expect else 0) or (
-                expect and S.LAUNCHES[expect] != 200):
-            raise RuntimeError(f"{label}: unexpected launches {S.LAUNCHES}")
+        got = {k: v for k, v in S.LAUNCHES.items() if v}
+        print(f"  {label}: launches {got}")
+        if got != expect:
+            raise RuntimeError(f"{label}: unexpected launches {got}")
         if pr.step != 200:
             raise RuntimeError(f"{label} stopped at step {pr.step}")
         runs[comp] = torch.as_tensor(pr.q)
@@ -1357,8 +1708,9 @@ def main():
     p64.run_compiled()
     q64 = torch.as_tensor(p64.q)
     route_err = kernel_vs_plain_err(runs[False], runs[None])
-    print(f"  scaled max difference, uncompensated kernel route vs plain "
-          f"step {route_err:.3e}; compensated kernel route vs plain step "
+    print(f"  scaled max difference, uncompensated kernel route (K3p "
+          f"sweeps) vs plain step {route_err:.3e}; compensated kernel "
+          f"route vs plain step "
           f"{kernel_vs_plain_err(runs[True], runs[None]):.3e}")
     to64 = {c: kernel_vs_plain_err(runs[c], q64) for c in runs}
     print("  scaled max difference to the float64 plain step: "
@@ -1470,6 +1822,18 @@ def main():
           f"{ADAPTIVE_IT}")
     adaptive_check(err)
 
+    print(f"phase 3o: bench.py bench_fv_step (journal, DH, dx 2e-5, dt "
+          f"1e-11), run_steps_fast({FV_STEPS}, compensated=False) at "
+          f"{', '.join(f'{m}²' for m in FV_SIZES)}: warm-up + median of 3, "
+          f"then K1 once per step for the record")
+    fv_throughput(launches)
+    print(f"phase 3p: run_steps_fast(compensated=False) on the boundary "
+          f"paths at {N} x {N}, fixed dt")
+    plain_bc_paths(launches)
+    print(f"phase 3p: route agreement at {N_CHECK} x {N_CHECK}, "
+          f"{PLAIN_ROUTE_STEPS} steps")
+    plain_route_check()
+
     # -- phase 4: physics ---------------------------------------------------
     from gapflow_torch.validate import sommerfeld_l2
     t0 = time.perf_counter()
@@ -1483,6 +1847,13 @@ def main():
     print(f"phase 5: kernel vs plain twin on the main paths' inputs, {n} x "
           f"{n}, amplitude 0.01")
     errs, times, bounds = kernel_times(n)
+    print(f"phase 5: plain whole-run kernels vs plain twins, {n} x {n} "
+          f"(plain_run at {FV_SIZES[0]}², its main-path size, and forced "
+          f"at {n}²), per step")
+    perrs, ptimes, pbounds = plain_kernel_times(n)
+    errs.update(perrs)
+    times.update(ptimes)
+    bounds.update(pbounds)
     print(f"phase 5: GP kernels vs plain twins on the GP paths' final "
           f"states, {n} x {n}, {GP_CAP} points x 3 surrogates")
     gerrs, gtimes, gbounds = gp_kernel_times(pj, pa, n)
@@ -1514,14 +1885,18 @@ def main():
         if len(bounds[k]) > 2:
             parts = (" = max(HBM {:.4f}, FP32 {:.4f}, MUFU {:.4f})"
                      .format(*bounds[k][2]))
-        print(f"phase 5: {k} {n}x{n}: kernel {ms:.4f} ms/step, plain twin "
+        m = FV_SIZES[0] if k == "plain_run" else n
+        print(f"phase 5: {k} {m}x{m}: kernel {ms:.4f} ms/step, plain twin "
               f"{plain:.4f} ms/step, bound {bounds[k][0]:.4f} ms "
               f"({bounds[k][1]}){parts}")
 
     sources = {k: "gapflow_torch/csrc/stencil.cu"
                for k in ("fused_step", "comp_step")}
+    sources.update({k: "gapflow_torch/csrc/stencil_plain.cu"
+                    for k in ("plain_steps", "plain_steps_rem", "plain_run")})
     sources.update({k: "gapflow_torch/csrc/stencil_bc.cu"
-                    for k in ("fused_step_bc", "comp_step_bc", "mixed_step")})
+                    for k in ("fused_step_bc", "comp_step_bc", "mixed_step",
+                              "plain_steps_bc")})
     sources.update({k: "gapflow_torch/csrc/stencil_gp.cu"
                     for k in ("gp_step", "gp_step_bc", "gp_steps")})
     sources.update({k: "gapflow_torch/csrc/stencil_ehl.cu"
@@ -1535,7 +1910,11 @@ def main():
                 "gp_step_bc": "gapflow_tpu/ops/stencil_gp.py:570",
                 "gp_steps": "gapflow_tpu/ops/stencil_gp.py:728",
                 "ehl_step": "gapflow_tpu/ops/stencil.py:935",
-                "ehl_comp_step": "gapflow_tpu/ops/stencil.py:1105"}
+                "ehl_comp_step": "gapflow_tpu/ops/stencil.py:1105",
+                "plain_steps": "gapflow_tpu/ops/stencil.py:681",
+                "plain_steps_rem": "gapflow_tpu/ops/stencil.py:1306",
+                "plain_run": "gapflow_tpu/ops/stencil.py:1364",
+                "plain_steps_bc": "gapflow_tpu/ops/stencil.py:759"}
     # no single PyTorch call computes a MacCormack step: library_ms null
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k],

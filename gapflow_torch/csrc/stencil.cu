@@ -29,9 +29,11 @@
 // The tile body (step_tile) is in stencil_tile.cuh, shared with the EHL
 // step of stencil_ehl.cu, which derives the statics in-kernel.
 //
-// Not done yet (later performance work): temporal blocking (K_MULTI = 4
-// steps per launch, as the TPU kernel), capturing the launch loop in a
-// CUDA graph, and vectorised 16-byte loads.
+// Temporal blocking (K_MULTI = 4 steps per launch, as the TPU kernel)
+// exists for the plain loop only (stencil_plain.cu, stencil_multi.cuh);
+// the compensated K2 still advances one step per launch.  Not done yet
+// (later performance work): K2 on that design, capturing the launch loop
+// in a CUDA graph, and vectorised 16-byte loads.
 //
 // Build (ops/_build.py): nvcc -gencode arch=compute_90a,code=sm_90a -O3
 //        --fmad=false -shared -Xcompiler -fPIC.  No --use_fast_math: it
@@ -49,7 +51,8 @@ fused_step_kernel(const float* __restrict__ q, const float* __restrict__ st,
                   float* __restrict__ out, int nx, int ny, int d0, float dt,
                   Params P) {
     const ArrayStatics S{st, (size_t)nx * ny, ny};
-    step_tile<MODE>(q, nullptr, S, out, nullptr, nx, ny, d0, dt, P);
+    step_tile<MODE>(q, nullptr, S, out, nullptr, nx, ny, blockIdx.y * TX,
+                    blockIdx.x * TY, d0, dt, P);
 }
 
 __global__ void __launch_bounds__(TX * TY)
@@ -58,7 +61,8 @@ comp_step_kernel(const float* __restrict__ q, const float* __restrict__ lo,
                  float* __restrict__ lo_out, int nx, int ny, int d0,
                  float dt, Params P) {
     const ArrayStatics S{st, (size_t)nx * ny, ny};
-    step_tile<COMP>(q, lo, S, q_out, lo_out, nx, ny, d0, dt, P);
+    step_tile<COMP>(q, lo, S, q_out, lo_out, nx, ny, blockIdx.y * TX,
+                    blockIdx.x * TY, d0, dt, P);
 }
 
 }  // namespace

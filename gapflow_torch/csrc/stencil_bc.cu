@@ -11,7 +11,12 @@
 //   - gf_mixed_step    <- mixed_bc.py _kernel_fused_bc_mixed: one step on
 //     the ghost-inclusive state of a mixed-edge run, whose periodic
 //     components on a mixed edge take given pass-1 ghost lines.
-// One template body serves all three.
+// One template body serves all three.  A fourth entry,
+//   - gf_plain_steps_bc <- stencil.py _kernel_fused_bc_hbm with nch = 3:
+//     k plain steps (4, or 2 with shear thinning) in one launch,
+//     temporally blocked on chip, the ghosts refilled in the block after
+//     every pass and every average,
+// runs the k-step body of stencil_multi.cuh on this file's edge codes.
 //
 // Coordinates are ghost-inclusive: X in [-1, nx], Y in [-1, ny], with the
 // ghost rows X = -1, nx and ghost columns Y = -1, ny of the reference
@@ -45,29 +50,9 @@
 // Build: see stencil.cu and ops/_build.py (same flags, --fmad=false).
 
 #include "stencil_common.cuh"
+#include "stencil_multi.cuh"
 
 namespace {
-
-enum Code { CP = 0, CD = 1, CN = 2, CG = 3 };
-
-// Per-edge component codes, two bits each at bit 6 e + 2 c, and the
-// Dirichlet values (2 val, rounded once on the host); edges 0..3 = xE
-// (X = -1), xW (X = nx), yS (Y = -1), yN (Y = ny).  Read only through
-// code() and twoval(): a kernel parameter indexed at run time would be
-// copied to local memory by every thread.
-struct Bc {
-    unsigned codes;
-    float tv[4];
-};
-
-__device__ __host__ __forceinline__ int code(const Bc& bc, int e, int c) {
-    return (bc.codes >> (6 * e + 2 * c)) & 3;
-}
-
-__device__ __forceinline__ float twoval(const Bc& bc, int e) {
-    return e == 0 ? bc.tv[0] : e == 1 ? bc.tv[1] : e == 2 ? bc.tv[2]
-                                                          : bc.tv[3];
-}
 
 // Device arrays and shape.  q: (3, nx, ny) interior, or (3, nx+2, ny+2)
 // ghost-inclusive when the template's GIN is set.  st: (8, nx+2, ny+2)
@@ -85,10 +70,6 @@ struct Ctx {
 struct V3 {
     float v[3];
 };
-
-__device__ __forceinline__ float fill(int code, float twoval, float adj) {
-    return code == CD ? twoval - adj : adj;
-}
 
 __device__ __forceinline__ void load_st(const Ctx& g, int X, int Y,
                                         float s[N_STATIC]) {
@@ -134,15 +115,6 @@ __device__ V3 q_in(const Ctx& g, const Bc& bc, int X, int Y) {
             a.v[c] = fill(code(bc, e, c), twoval(bc, e), a.v[c]);
     }
     return a;
-}
-
-// np.gradient along one axis at ghost-inclusive index X of [-1, n]:
-// one-sided at the ghost slots, centred inside.
-__device__ __forceinline__ float grad(int X, int n, float pm, float p0,
-                                      float pp, float h) {
-    if (X <= -1) return (pp - p0) / h;
-    if (X >= n) return (p0 - pm) / h;
-    return ((pp - pm) / h) / 2.f;
 }
 
 // Pass-1 fluxes and sources at a ghost-inclusive cell, from device memory.
@@ -436,22 +408,6 @@ bc_step_kernel(Ctx g, Bc bc, Params P, Thin T, const float* __restrict__ lo,
     }
 }
 
-// bprm: 12 edge codes (edge-major), thinning model; bfprm: 2 val per
-// edge, V - U, dx, dy, 4 thinning parameters.
-void make_bc(const int* bprm, const float* bfprm, Bc* bc, Thin* T) {
-    bc->codes = 0;
-    for (int e = 0; e < 4; ++e) {
-        for (int c = 0; c < 3; ++c)
-            bc->codes |= (unsigned)bprm[3 * e + c] << (6 * e + 2 * c);
-        bc->tv[e] = bfprm[e];
-    }
-    T->model = bprm[12];
-    T->vmu = bfprm[4];
-    T->dx = bfprm[5];
-    T->dy = bfprm[6];
-    for (int k = 0; k < 4; ++k) T->a[k] = bfprm[7 + k];
-}
-
 Ctx make_ctx(const float* q, const float* st, const float* gx,
              const float* gy, int nx, int ny, const Bc& bc) {
     return Ctx{q, st, gx, gy, nx, ny, code(bc, 0, 0) == CP,
@@ -524,4 +480,20 @@ extern "C" int gf_mixed_step(const float* qg, const float* st,
     return emit_delta
         ? launch<true, false, DELTA>(g, bc, P, T, nullptr, out, nullptr, d0, dt, stream)
         : launch<true, false, STATE>(g, bc, P, T, nullptr, out, nullptr, d0, dt, stream);
+}
+
+// k plain steps on D/N, thinning or periodic edges in one launch (k <= 4,
+// or <= 2 with shear thinning); q/out (3, nx, ny), st (8, nx+2, ny+2).
+extern "C" int gf_plain_steps_bc(const float* q, const float* st, float* out,
+                                 int nx, int ny, int k, int d0,
+                                 const int* iprm, const float* fprm,
+                                 const int* bprm, const float* bfprm,
+                                 float dt, void* stream) {
+    const Params P = make_params(iprm, fprm);
+    Bc bc;
+    Thin T;
+    make_bc(bprm, bfprm, &bc, &T);
+    return T.model != 0
+        ? launch_multi<true, true>(q, st, out, nx, ny, k, d0, dt, P, bc, T, stream)
+        : launch_multi<true, false>(q, st, out, nx, ny, k, d0, dt, P, bc, T, stream);
 }

@@ -212,4 +212,61 @@ dim3 grid_for(int nx, int ny) {
     return dim3((ny + TY - 1) / TY, (nx + TX - 1) / TX);
 }
 
+__device__ __forceinline__ int wrap(int i, int n) {
+    i %= n;
+    return i < 0 ? i + n : i;
+}
+
+// -- edge codes of the boundary kernels (stencil_bc.cu, stencil_multi.cuh) --
+
+enum Code { CP = 0, CD = 1, CN = 2, CG = 3 };
+
+// Per-edge component codes, two bits each at bit 6 e + 2 c, and the
+// Dirichlet values (2 val, rounded once on the host); edges 0..3 = xE
+// (X = -1), xW (X = nx), yS (Y = -1), yN (Y = ny).  Read only through
+// code() and twoval(): a kernel parameter indexed at run time would be
+// copied to local memory by every thread.
+struct Bc {
+    unsigned codes;
+    float tv[4];
+};
+
+__device__ __host__ __forceinline__ int code(const Bc& bc, int e, int c) {
+    return (bc.codes >> (6 * e + 2 * c)) & 3;
+}
+
+__device__ __forceinline__ float twoval(const Bc& bc, int e) {
+    return e == 0 ? bc.tv[0] : e == 1 ? bc.tv[1] : e == 2 ? bc.tv[2]
+                                                          : bc.tv[3];
+}
+
+__device__ __forceinline__ float fill(int code, float twoval, float adj) {
+    return code == CD ? twoval - adj : adj;
+}
+
+// np.gradient along one axis at ghost-inclusive index X of [-1, n]:
+// one-sided at the ghost slots, centred inside.
+__device__ __forceinline__ float grad(int X, int n, float pm, float p0,
+                                      float pp, float h) {
+    if (X <= -1) return (pp - p0) / h;
+    if (X >= n) return (p0 - pm) / h;
+    return ((pp - pm) / h) / 2.f;
+}
+
+// bprm: 12 edge codes (edge-major), thinning model; bfprm: 2 val per
+// edge, V - U, dx, dy, 4 thinning parameters.
+void make_bc(const int* bprm, const float* bfprm, Bc* bc, Thin* T) {
+    bc->codes = 0;
+    for (int e = 0; e < 4; ++e) {
+        for (int c = 0; c < 3; ++c)
+            bc->codes |= (unsigned)bprm[3 * e + c] << (6 * e + 2 * c);
+        bc->tv[e] = bfprm[e];
+    }
+    T->model = bprm[12];
+    T->vmu = bfprm[4];
+    T->dx = bfprm[5];
+    T->dy = bfprm[6];
+    for (int k = 0; k < 4; ++k) T->a[k] = bfprm[7 + k];
+}
+
 }  // namespace

@@ -32,8 +32,10 @@
 // 3 + 2 in, 3 out), against ~300 FP32 operations, far below the card's
 // balance.  The statics of a halo cell are formed again by every tile
 // that reads it (about 1.5x the cells, plus four reads of H for the
-// differences, mostly from L1/L2).  Not done yet: temporal blocking and
-// CUDA graphs, as for K2.
+// differences, mostly from L1/L2).  Not done yet: temporal blocking (the
+// plain periodic loop has it, stencil_multi.cuh; the EHL loop deforms
+// the gap every step, so its statics change between steps) and CUDA
+// graphs, as for K2.
 //
 // Build: see stencil.cu and ops/_build.py (--fmad=false, IEEE division,
 // no --use_fast_math), so that kernel and plain twin round op for op.
@@ -90,7 +92,8 @@ __global__ void __launch_bounds__(TX * TY)
 ehl_step_kernel(const float* __restrict__ q, const float* __restrict__ lo,
                 EhlStatics S, float* __restrict__ out,
                 float* __restrict__ lo_out, int d0, float dt, Params P) {
-    step_tile<MODE>(q, lo, S, out, lo_out, S.nx, S.ny, d0, dt, P);
+    step_tile<MODE>(q, lo, S, out, lo_out, S.nx, S.ny, blockIdx.y * TX,
+                    blockIdx.x * TY, d0, dt, P);
 }
 
 }  // namespace

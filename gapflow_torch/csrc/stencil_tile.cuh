@@ -19,11 +19,6 @@ namespace {
 constexpr int LX = TX + 4, LY = TY + 4;   // loaded region: tile + 2-cell halo
 constexpr int RX = TX + 2, RY = TY + 2;   // pass-d0 region: tile + 1-cell ring
 
-__device__ __forceinline__ int wrap(int i, int n) {
-    i %= n;
-    return i < 0 ? i + n : i;
-}
-
 // The statics precomputed by ops/stencil.py interior_statics: (8, nx, ny).
 // Read-only inputs are read through the non-coherent cache (__ldg).
 struct ArrayStatics {
@@ -53,16 +48,20 @@ __device__ __forceinline__ void update(float (*F)[X][Y],
     u[2] = dt * (ddx(3) + ddy(4) - S[2]);
 }
 
-// One MacCormack step of one TX x TY tile.  Block = TY x TX threads.
-// MODE: STATE writes the new state, DELTA the increment
-// ((q* - q) - u) / 2, COMP the Kahan-compensated (q, q_lo) carry.
-template <int MODE, class Statics>
+// One MacCormack step of the TX x TY tile at interior cell (x0, y0).
+// Block = TY x TX threads.  MODE: STATE writes the new state, DELTA the
+// increment ((q* - q) - u) / 2, COMP the Kahan-compensated (q, q_lo)
+// carry.  COHERENT reads q through L2 only (__ldcg): the persistent
+// whole-run kernel of stencil_plain.cu reads the state that other blocks
+// wrote earlier in the same launch, which the read-only path may not see.
+template <int MODE, class Statics, bool COHERENT = false>
 __device__ void step_tile(const float* __restrict__ q,
                           const float* __restrict__ lo,
                           const Statics ST,
                           float* __restrict__ out,
                           float* __restrict__ lo_out,
-                          int nx, int ny, int d0, float dt, const Params& P) {
+                          int nx, int ny, int x0, int y0, int d0, float dt,
+                          const Params& P) {
     __shared__ float qL[3][LX][LY];        // q on the loaded region
     __shared__ float fL[5][LX][LY];        // pass-d0 fluxes
     __shared__ float sR[3][RX][RY];        // pass-d0 sources (ring region)
@@ -71,7 +70,6 @@ __device__ void step_tile(const float* __restrict__ q,
     __shared__ float s1R[3][RX][RY];       // pass-d1 sources
 
     const size_t plane = (size_t)nx * ny;
-    const int x0 = blockIdx.y * TX, y0 = blockIdx.x * TY;
     const int tid = threadIdx.y * TY + threadIdx.x;
     const int nthreads = TX * TY;
     const int d1 = -d0;
@@ -83,7 +81,8 @@ __device__ void step_tile(const float* __restrict__ q,
         const size_t g = (size_t)gi * ny + gj;
         float s[N_STATIC];
         ST.load(gi, gj, s);
-        const float a = q[g], b = q[plane + g], cc = q[2 * plane + g];
+        auto ld = [&](size_t i) { return COHERENT ? __ldcg(q + i) : q[i]; };
+        const float a = ld(g), b = ld(plane + g), cc = ld(2 * plane + g);
         qL[0][li][lj] = a;
         qL[1][li][lj] = b;
         qL[2][li][lj] = cc;

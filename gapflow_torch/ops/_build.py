@@ -39,6 +39,13 @@ _SIGNATURES = {
     "gf_fused_step": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _P],
     # q, lo, st, q_out, lo_out, nx, ny, d0, iprm, fprm, dt, stream
     "gf_comp_step": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _P],
+    # q, st, out, nx, ny, k, d0, iprm, fprm, dt, stream
+    "gf_plain_steps": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _P],
+    # q, st, A, B, nx, ny, n, d0, iprm, fprm, dt, blocks, stream
+    "gf_plain_run": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _I, _P],
+    # q, st, out, nx, ny, k, d0, iprm, fprm, bprm, bfprm, dt, stream
+    "gf_plain_steps_bc": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _F,
+                          _P],
     # q, st, out, nx, ny, d0, emit_delta, iprm, fprm, bprm, bfprm, dt, stream
     "gf_fused_step_bc": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _F, _P],
     # q, lo, st, q_out, lo_out, nx, ny, d0, iprm, fprm, bprm, bfprm, dt,

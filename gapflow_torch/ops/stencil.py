@@ -1,7 +1,8 @@
 """Fused MacCormack steps: CUDA kernels, their plain twins, drivers.
 
-Counterpart of :mod:`gapflow_tpu.ops.stencil`.  Six kernels, in
-``csrc/stencil.cu`` (periodic), ``csrc/stencil_bc.cu`` (boundary) and
+Counterpart of :mod:`gapflow_tpu.ops.stencil`.  Nine kernels, in
+``csrc/stencil.cu`` (periodic), ``csrc/stencil_plain.cu`` (the plain
+periodic loop), ``csrc/stencil_bc.cu`` (boundary) and
 ``csrc/stencil_ehl.cu`` (periodic, statics from the deformed gap):
 
 - :func:`fused_step` (replaces ``_kernel_fused``): one periodic step on
@@ -10,12 +11,24 @@ Counterpart of :mod:`gapflow_tpu.ops.stencil`.  Six kernels, in
 - :func:`comp_steps` (replaces ``_kernel_fused_hbm_loop`` with
   ``_advance_comp``): ``n`` Kahan-compensated periodic steps on the
   ``(q, q_lo)`` carry, one launch per step, ping-ponging two buffer pairs;
+- :func:`plain_steps` (replaces ``_kernel_fused_hbm_loop`` with
+  ``_advance_plain`` and, with ``k = n mod K_MULTI``, ``_kernel_fused_ext``):
+  ``k <= K_MULTI`` plain periodic steps in one launch, each tile advanced
+  ``k`` steps on chip (temporal blocking);
+- :func:`plain_run` (replaces ``_kernel_fused_vmem``): a whole plain
+  periodic run of ``n`` steps in one cooperative launch, the state
+  ping-ponging between two buffers that stay in L2 where they fit
+  (:func:`_plain_run_fits`);
 - :func:`fused_step_bc` (replaces ``_kernel_fused_bc``): one step on
   Dirichlet/Neumann edges, with shear thinning on any edges, the ghosts
   built from the interior by the edge formulas and refilled between the
   passes;
 - :func:`comp_steps_bc` (replaces ``_kernel_fused_bc_hbm``, ``nch = 6``):
   its compensated form, one launch per step;
+- :func:`plain_steps_bc` (replaces ``_kernel_fused_bc_hbm``, ``nch = 3``):
+  ``k <= _k_steps(cfg)`` plain boundary steps in one launch, temporally
+  blocked, the ghosts refilled in the block after every pass and
+  average;
 - :func:`ehl_step` (replaces ``_kernel_fused_ehl``) and
   :func:`ehl_comp_step` (replaces ``_kernel_fused_ehl6``): K1's step and
   the compensated step on the interior ``(q, q_lo)`` carry, with the
@@ -38,8 +51,9 @@ launches the kernel or raises.  Every launch adds one to its entry in
 Coverage (:func:`pallas_supported`): a static pass order
 (``MC_order != 0``) and edges that are each fully periodic or have no
 periodic component, with every EOS, piezoviscosity and shear-thinning
-model.  Fully periodic edges without thinning take K1/K2, everything else
-K3.  Mixed per-component edges: :func:`ops.mixed_bc.mixed_supported`.
+model.  Fully periodic edges without thinning take K1/K2 and the plain
+periodic kernels, everything else K3 and its plain sweeps.  Mixed
+per-component edges: :func:`ops.mixed_bc.mixed_supported`.
 """
 
 import functools
@@ -63,10 +77,17 @@ from ..models.viscosity import _PIEZO, _THINNING
 K_MULTI = 4
 
 #: Kernel launches per wrapper since the last reset (the plain twins
-#: count nothing).  ``mixed_step`` counts :func:`ops.mixed_bc.mixed_step`.
-LAUNCHES = {"fused_step": 0, "comp_step": 0, "fused_step_bc": 0,
-            "comp_step_bc": 0, "mixed_step": 0, "ehl_step": 0,
-            "ehl_comp_step": 0}
+#: count nothing).  ``mixed_step`` counts :func:`ops.mixed_bc.mixed_step`;
+#: :func:`plain_steps` counts a sweep (``k = K_MULTI``) as ``plain_steps``
+#: and a remainder launch as ``plain_steps_rem``.
+LAUNCHES = {"fused_step": 0, "comp_step": 0, "plain_steps": 0,
+            "plain_steps_rem": 0, "plain_run": 0, "fused_step_bc": 0,
+            "comp_step_bc": 0, "plain_steps_bc": 0, "mixed_step": 0,
+            "ehl_step": 0, "ehl_comp_step": 0}
+
+#: L2 cache of an H100 (bytes), the size :func:`_plain_run_fits` assumes
+#: for a tensor on the CPU; on a CUDA device the device's own is read.
+H100_L2_BYTES = 50 * 2 ** 20
 
 
 def reset_launches():
@@ -193,6 +214,20 @@ def comp_steps_ref(q_int, q_lo, statics, dt, cfg, n):
     return q_int, q_lo
 
 
+def plain_steps_ref(q_int, statics, dt, cfg, k):
+    """Plain torch twin of :func:`plain_steps`: ``k`` steps of
+    :func:`fused_step_ref`."""
+    for _ in range(k):
+        q_int = fused_step_ref(q_int, statics, dt, cfg)
+    return q_int
+
+
+def plain_run_ref(q_int, statics, dt, cfg, n):
+    """Plain torch twin of :func:`plain_run`: ``n`` steps of
+    :func:`fused_step_ref`."""
+    return plain_steps_ref(q_int, statics, dt, cfg, n)
+
+
 def with_ghosts(q_int, cfg):
     """Interior (3, nx, ny) -> ghost-inclusive, ghosts from the edge
     formulas (``apply_bcs``: x edges, then y edges)."""
@@ -231,6 +266,16 @@ def comp_steps_bc_ref(q_int, q_lo, statics_g, dt, cfg, n):
         delta = fused_step_bc_ref(q_int, statics_g, dt, cfg, emit_delta=True)
         q_int, q_lo = _kahan(q_int, q_lo, delta)
     return q_int, q_lo
+
+
+def plain_steps_bc_ref(q_int, statics_g, dt, cfg, k):
+    """Plain torch twin of :func:`plain_steps_bc`: ``k`` steps of
+    :func:`fused_step_bc_ref` (the ghosts rebuilt from the interior by
+    the edge formulas after every step, as the kernel refills them after
+    every average)."""
+    for _ in range(k):
+        q_int = fused_step_bc_ref(q_int, statics_g, dt, cfg)
+    return q_int
 
 
 # ---------------------------------------------------------------------------
@@ -456,6 +501,79 @@ def comp_steps(q_int, q_lo, statics, dt, cfg, n):
     return src
 
 
+def _periodic_gate(cfg):
+    if not _periodic_kernel_ok(cfg):
+        raise ValueError("the periodic kernels require fully periodic "
+                         "edges without shear thinning")
+
+
+def _check_k(k, kmax):
+    if not 1 <= k <= kmax:
+        raise ValueError(f"steps per launch must lie in [1, {kmax}], "
+                         f"got {k}")
+
+
+def plain_steps(q_int, statics, dt, cfg, k):
+    """``k`` (1 to :data:`K_MULTI`) plain periodic steps in one launch.
+
+    Each tile is advanced ``k`` steps on chip (temporal blocking), so the
+    state and statics cross device memory once per ``k`` steps; the result
+    equals ``k`` launches of :func:`fused_step`.  ``q_int``: (3, nx, ny),
+    ``statics``: (8, nx, ny).  Returns the new state.  CUDA tensors
+    (float32) launch the kernel; CPU tensors run :func:`plain_steps_ref`.
+    """
+    if _on_cpu(q_int):
+        return plain_steps_ref(q_int, statics, dt, cfg, k)
+    _periodic_gate(cfg)
+    _check_k(k, K_MULTI)
+    nx, ny = _check_cuda(q_int, statics)
+    iprm, fprm = _kernel_params(cfg)
+    d0, _ = mc_directions(cfg.MC_order)
+    out = torch.empty_like(q_int)
+    lib = _build.load()
+    with torch.cuda.device(q_int.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gf_plain_steps(q_int.data_ptr(), statics.data_ptr(),
+                                out.data_ptr(), nx, ny, k, d0,
+                                iprm.ctypes.data, fprm.ctypes.data,
+                                float(dt), stream)
+    _build.check(lib, rc, "gf_plain_steps")
+    LAUNCHES["plain_steps" if k == K_MULTI else "plain_steps_rem"] += 1
+    return out
+
+
+def plain_run(q_int, statics, dt, cfg, n, blocks=0):
+    """A whole plain periodic run of ``n`` steps in one cooperative launch.
+
+    Every step advances every tile by :func:`fused_step`'s body, the
+    state ping-ponging between two device buffers, a grid-wide barrier
+    between the steps; the grid is the co-resident maximum (``blocks`` >
+    0 forces it, to test that a refused launch raises).  The inputs are
+    not modified.  Returns the new state.  CUDA tensors (float32) launch
+    the kernel; CPU tensors run :func:`plain_run_ref`.
+    """
+    if _on_cpu(q_int):
+        return plain_run_ref(q_int, statics, dt, cfg, n)
+    _periodic_gate(cfg)
+    nx, ny = _check_cuda(q_int, statics)
+    if n == 0:
+        return q_int
+    iprm, fprm = _kernel_params(cfg)
+    d0, _ = mc_directions(cfg.MC_order)
+    bufs = torch.empty((2, 3, nx, ny), dtype=q_int.dtype,
+                       device=q_int.device)
+    lib = _build.load()
+    with torch.cuda.device(q_int.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gf_plain_run(q_int.data_ptr(), statics.data_ptr(),
+                              bufs[0].data_ptr(), bufs[1].data_ptr(), nx, ny,
+                              n, d0, iprm.ctypes.data, fprm.ctypes.data,
+                              float(dt), int(blocks), stream)
+    _build.check(lib, rc, "gf_plain_run")
+    LAUNCHES["plain_run"] += 1
+    return bufs[(n - 1) % 2]
+
+
 def _bc_gate(cfg):
     if not pallas_supported(cfg):
         raise ValueError("the boundary kernel does not cover this "
@@ -530,6 +648,39 @@ def comp_steps_bc(q_int, q_lo, statics_g, dt, cfg, n):
     return src
 
 
+def plain_steps_bc(q_int, statics_g, dt, cfg, k):
+    """``k`` (1 to :func:`_k_steps`) plain steps on D/N, thinning or
+    periodic edges in one launch.
+
+    Each tile is advanced ``k`` steps on chip, its ghost rows and columns
+    refilled by the edge formulas after every pass and every average; the
+    result equals ``k`` launches of :func:`fused_step_bc`.  ``q_int``:
+    (3, nx, ny); ``statics_g``: (8, nx+2, ny+2).  Returns the new
+    interior state.  CUDA tensors (float32) launch the kernel; CPU
+    tensors run :func:`plain_steps_bc_ref`.
+    """
+    if _on_cpu(q_int):
+        return plain_steps_bc_ref(q_int, statics_g, dt, cfg, k)
+    _bc_gate(cfg)
+    _check_k(k, _k_steps(cfg))
+    nx, ny = _check_cuda(q_int, statics_g, ghosted=True)
+    iprm, fprm = _kernel_params(cfg)
+    bprm, bfprm = _bc_params(cfg)
+    d0, _ = mc_directions(cfg.MC_order)
+    out = torch.empty_like(q_int)
+    lib = _build.load()
+    with torch.cuda.device(q_int.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gf_plain_steps_bc(q_int.data_ptr(), statics_g.data_ptr(),
+                                   out.data_ptr(), nx, ny, k, d0,
+                                   iprm.ctypes.data, fprm.ctypes.data,
+                                   bprm.ctypes.data, bfprm.ctypes.data,
+                                   float(dt), stream)
+    _build.check(lib, rc, "gf_plain_steps_bc")
+    LAUNCHES["plain_steps_bc"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Drivers on ghost-inclusive arrays
 # ---------------------------------------------------------------------------
@@ -566,6 +717,55 @@ def _kernels(cfg):
     return ghost_statics, fused_step_bc, comp_steps_bc
 
 
+def _plain_run_fits(nx, ny, device):
+    """Whether :func:`plain_run` takes the run: the ping-pong pair and the
+    statics, ``(2 * 3 + 8) * nx * ny`` floats, fit the device's L2 cache
+    (the counterpart of the TPU kernel's VMEM gate).  A CPU device is
+    taken for an H100 (:data:`H100_L2_BYTES`)."""
+    device = torch.device(device)
+    l2 = (torch.cuda.get_device_properties(device).L2_cache_size
+          if device.type == "cuda" else H100_L2_BYTES)
+    return (2 * 3 + N_STATIC) * nx * ny * 4 <= l2
+
+
+def _plain_route(cfg, nx, ny, n_steps, device):
+    """The launches of a plain (uncompensated) run of ``n_steps``, in the
+    JAX package's escalation: ``(entry, k, n_sweeps, n_rem)``.
+
+    Periodic edges without thinning: the whole run in one
+    :func:`plain_run` where it fits the L2 cache and ``n_steps > 1``
+    (``("plain_run", n_steps, 1, 0)``), else ``n_sweeps`` launches of
+    :func:`plain_steps` with ``k = K_MULTI`` and one with ``k = n_rem``.
+    Other edges: ``n_sweeps`` launches of :func:`plain_steps_bc` with
+    ``k = _k_steps(cfg)``, then ``n_rem`` of :func:`fused_step_bc`.
+    """
+    if _periodic_kernel_ok(cfg):
+        if n_steps > 1 and _plain_run_fits(nx, ny, device):
+            return "plain_run", n_steps, 1, 0
+        return ("plain_steps", K_MULTI) + divmod(n_steps, K_MULTI)
+    k = _k_steps(cfg)
+    return ("plain_steps_bc", k) + divmod(n_steps, k)
+
+
+def _plain_loop(cfg, q_int, st, dt, n_steps):
+    """The plain run of ``n_steps`` on the interior state, by
+    :func:`_plain_route`."""
+    nx, ny = q_int.shape[1:]
+    entry, k, n_sweeps, n_rem = _plain_route(cfg, nx, ny, n_steps,
+                                             q_int.device)
+    if entry == "plain_run":
+        return plain_run(q_int, st, dt, cfg, k)
+    if entry == "plain_steps":
+        for _ in range(n_sweeps):
+            q_int = plain_steps(q_int, st, dt, cfg, k)
+        return plain_steps(q_int, st, dt, cfg, n_rem) if n_rem else q_int
+    for _ in range(n_sweeps):
+        q_int = plain_steps_bc(q_int, st, dt, cfg, k)
+    for _ in range(n_rem):
+        q_int = fused_step_bc(q_int, st, dt, cfg)
+    return q_int
+
+
 def make_pallas_step(cfg, nx, ny, dtype=torch.float32):
     """``step(q, topo, extra, dt, step_idx) -> q``: one fused step on
     ghost-inclusive arrays (``make_det_step`` minus the bookkeeping).
@@ -597,7 +797,11 @@ def make_pallas_loop(cfg, nx, ny, dtype=torch.float32, compensated=False,
     :func:`ops.mixed_bc.make_mixed_loop`, fully periodic edges without
     thinning to K1/K2, everything else to K3.  The statics are computed
     once; between steps q stays in the interior layout.
-    ``compensated=False`` runs the one-step kernel ``n_steps`` times.
+    ``compensated=False`` takes the plain whole-run kernels of
+    :func:`_plain_route`: on periodic edges the whole run in one launch
+    where it fits the L2 cache, else sweeps of ``K_MULTI`` temporally
+    blocked steps and one launch for the remainder; on other edges sweeps
+    of :func:`_k_steps` steps and the one-step kernel for the remainder.
     ``compensated=True`` accumulates the increments with a Kahan carry
     ``(q, q_lo)``, which float32 runs need near steady state, where
     per-step increments fall below one ulp of the density: full sweeps of
@@ -627,9 +831,7 @@ def make_pallas_loop(cfg, nx, ny, dtype=torch.float32, compensated=False,
         dt = float(dt)
 
         if not compensated:
-            for _ in range(n_steps):
-                q_int = step_fn(q_int, st, dt, cfg)
-            return with_ghosts(q_int, cfg)
+            return with_ghosts(_plain_loop(cfg, q_int, st, dt, n_steps), cfg)
 
         lo = (torch.zeros_like(q_int) if q_lo is None
               else torch.as_tensor(q_lo, device=q.device).to(dtype)
@@ -763,18 +965,12 @@ def ehl_comp_step(q_int, q_lo, h_int, ls_int, px, py, dt, cfg):
     return out[:3], out[3:]
 
 
-def _ehl_gate(cfg):
-    if not _periodic_kernel_ok(cfg):
-        raise ValueError("EHL statics-in-kernel path requires a fully "
-                         "periodic, non-thinning configuration")
-
-
 def make_pallas_ehl_step(cfg, nx, ny, dtype=torch.float32, emit_delta=False):
     """``step(q, u, h_und, extra, dt) -> q_new`` on ghost-inclusive arrays
     around :func:`ehl_step`: the gap ``h_und + u`` is rebuilt inside the
     kernel.  Returns the ghost-inclusive new state (ghosts by periodic
     wrap) or, with ``emit_delta``, the interior increment."""
-    _ehl_gate(cfg)
+    _periodic_gate(cfg)
 
     def step(q, u, h_und, extra, dt):
         q = torch.as_tensor(q).to(dtype)
@@ -795,7 +991,7 @@ def make_pallas_ehl_loop_step(cfg, nx, ny, dtype=torch.float32):
     """``step(q6, h_int, ls_int, px, py, dt) -> q6`` around
     :func:`ehl_comp_step`, with ``q6`` the interior (6, nx, ny)
     ``(q, q_lo)`` state."""
-    _ehl_gate(cfg)
+    _periodic_gate(cfg)
 
     def step(q6, h_int, ls_int, px, py, dt):
         q6 = torch.as_tensor(q6).to(dtype)

@@ -5,6 +5,9 @@ Counterpart of the deterministic checks of :mod:`gapflow_tpu.validate`:
 - :func:`sommerfeld_l2`: the journal bearing through the fused
   compensated loop to steady state, against the analytic Sommerfeld
   pressure (rel-L2 < 0.02 is the acceptance bar);
+- :func:`pallas_vs_xla_err`: the plain fused loop (the whole-run
+  kernels on the card) against the plain step from one perturbed
+  float32 state;
 - :func:`perturbed_state`: a non-inert journal state for comparing a
   kernel with its plain twin (the unperturbed float32 state is frozen:
   its per-step increments fall below one ulp of the density);
@@ -60,6 +63,39 @@ def sommerfeld_l2(n_steps=20000, nx=256, ny=128, device="cuda"):
                                 problem.geo["U"], problem.geo["CR"],
                                 problem.geo["eps"], p_num[0] - dp / 2)
     return float(np.linalg.norm(p_ana - p_num) / np.linalg.norm(p_ana))
+
+
+def pallas_vs_xla_err(nx=256, ny=256, n_steps=8, device="cuda"):
+    """Component-scaled max error, plain fused loop vs plain steps.
+
+    Runs ``n_steps`` through both :func:`ops.stencil.make_pallas_loop`
+    (``compensated=False``: on the card the plain whole-run kernels; at
+    256² the whole run in one launch) and :func:`core.step.make_det_step`
+    from the same perturbed float32 journal state (dx 2e-5, dt 5e-11, as
+    the JAX package's check of its Pallas loop against its XLA step).
+    Returns max_c max |loop - step| / max |step_c| over the
+    ghost-inclusive state.
+    """
+    from . import Problem
+    from .core.step import make_det_step
+    from .ops import make_pallas_loop, pallas_supported
+
+    problem = Problem.from_string(
+        journal_yaml(nx, ny, dx=2e-5, dt=5e-11, tol=1e-9,
+                     out="data/val_eq"),
+        device=device, dtype=torch.float32)
+    problem._pre_run()
+    cfg = problem._solver_cfg
+    if not pallas_supported(cfg):
+        raise RuntimeError("journal configuration lost kernel support")
+    state = perturbed_state(problem, amp=0.01)
+    det = make_det_step(cfg, with_aux=False)
+    s = state
+    for _ in range(n_steps):
+        s = det(s)
+    loop = make_pallas_loop(cfg, nx, ny, dtype=torch.float32)
+    out = loop(state.q, state.topo, state.extra, state.dt, n_steps)
+    return kernel_vs_plain_err(out, s.q)
 
 
 DH = "EOS: DH, P0: 101325., rho0: 877.7007, C1: 3.5e10, C2: 1.23"

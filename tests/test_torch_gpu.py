@@ -2,8 +2,10 @@
 
 K1/K2 (periodic), K3 (D/N edges and shear thinning, per step and
 compensated), K4 (mixed per-component edges, per step and through its
-loop) on ragged shapes (no multiple of the 8 x 32 tile), K5/K6/K7 (the
-GP-closed steps) at 128 x 128, and runs that take the kernels.  The
+loop) on ragged shapes (no multiple of the 8 x 32 tile), the plain
+whole-run kernels (K2p/Ke, Kv, K3p: equal bit for bit to K1 or K3
+launched once per step), K5/K6/K7 (the GP-closed steps) at 128 x 128,
+and runs that take the kernels.  The
 kernels have no CPU mode, so these tests skip without a CUDA device.
 This file imports no JAX; on a machine without it, run
 
@@ -186,6 +188,109 @@ def test_dn_run_takes_the_kernels(cuda, case):
     assert S.LAUNCHES["fused_step_bc"] == 10 % k
     assert sum(S.LAUNCHES.values()) == 10
     assert np.isfinite(p.q).all() and (p.q[0] > 0).all()
+
+
+# -- plain whole-run kernels --------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_plain_steps_match_k1(cuda_problem, k):
+    """K2p/Ke: k steps in one launch equal k launches of K1 bit for bit,
+    and the twin within 1e-5 (40 x 72: ragged 32 x 32 tiles)."""
+    cfg = cuda_problem._solver_cfg
+    q, st, dt = _inputs(cuda_problem)
+    ref = q
+    for _ in range(k):
+        ref = S.fused_step(ref, st, dt, cfg)
+    S.reset_launches()
+    out = S.plain_steps(q, st, dt, cfg, k)
+    assert S.LAUNCHES["plain_steps" if k == 4 else "plain_steps_rem"] == 1
+    assert torch.equal(out, ref)
+    assert kernel_vs_plain_err(out, S.plain_steps_ref(q, st, dt, cfg,
+                                                      k)) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2, 9])
+def test_plain_run_matches_k1(cuda_problem, n):
+    """Kv: the whole run in one cooperative launch equals n launches of
+    K1 bit for bit; the input is left untouched."""
+    cfg = cuda_problem._solver_cfg
+    q, st, dt = _inputs(cuda_problem)
+    q0 = q.clone()
+    ref = q
+    for _ in range(n):
+        ref = S.fused_step(ref, st, dt, cfg)
+    S.reset_launches()
+    out = S.plain_run(q, st, dt, cfg, n)
+    assert S.LAUNCHES["plain_run"] == 1
+    assert torch.equal(out, ref)
+    assert torch.equal(q, q0)
+    assert kernel_vs_plain_err(out, S.plain_run_ref(q, st, dt, cfg,
+                                                    n)) < 1e-5
+
+
+@pytest.mark.gpu
+def test_plain_run_raises_when_the_launch_is_refused(cuda_problem):
+    """More blocks than can be co-resident: the cooperative launch is
+    refused and the wrapper raises (no fallback)."""
+    cfg = cuda_problem._solver_cfg
+    q, st, dt = _inputs(cuda_problem)
+    S.reset_launches()
+    with pytest.raises(RuntimeError, match="gf_plain_run"):
+        S.plain_run(q, st, dt, cfg, 4, blocks=1 << 20)
+    assert S.LAUNCHES["plain_run"] == 0
+    torch.cuda.synchronize()          # the device is still usable
+    assert torch.equal(S.plain_run(q, st, dt, cfg, 2),
+                       S.fused_step(S.fused_step(q, st, dt, cfg), st, dt,
+                                    cfg))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case, ny", [(c, 72) for c in BC_CASES]
+                         + [("dn_x", 1), ("dn_x_barus_eyring", 1)])
+def test_plain_steps_bc_match_k3(cuda, case, ny):
+    """K3p: k steps (up to 4, or 2 with thinning) in one launch equal k
+    launches of K3 bit for bit, and the twin within 1e-5."""
+    p = _problem(*BC_CASES[case], ny=ny)
+    cfg = p._solver_cfg
+    q, st, dt = _ghosted_inputs(p)
+    ref = q
+    for k in range(1, S._k_steps(cfg) + 1):
+        ref = S.fused_step_bc(ref, st, dt, cfg)
+        S.reset_launches()
+        out = S.plain_steps_bc(q, st, dt, cfg, k)
+        assert S.LAUNCHES["plain_steps_bc"] == 1
+        assert torch.equal(out, ref), k
+        assert kernel_vs_plain_err(
+            out, S.plain_steps_bc_ref(q, st, dt, cfg, k)) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid, n, want", [
+    ("", 9, {"plain_run": 1}),
+    ("dn_x", 9, {"plain_steps_bc": 2, "fused_step_bc": 1}),
+    ("dn_x_barus_eyring", 9, {"plain_steps_bc": 4, "fused_step_bc": 1})])
+def test_plain_loop_takes_the_plain_kernels(cuda, grid, n, want):
+    """run_steps_fast(compensated=False) reaches the plain kernels (40 x
+    72 fits the L2 cache: one Kv launch) and agrees with K1 or K3 once
+    per step."""
+    p = _problem(*(BC_CASES[grid] if grid else ("",)))
+    S.reset_launches()
+    p.run_steps_fast(n, compensated=False)
+    assert {k: v for k, v in S.LAUNCHES.items() if v} == want
+    cfg = p._solver_cfg
+    ref = _problem(*(BC_CASES[grid] if grid else ("",)))
+    step = S.fused_step if not grid else S.fused_step_bc
+    statics = S.interior_statics if not grid else S.ghost_statics
+    st = statics(ref.topo.full, ref.fc.get_real_field("extra").p,
+                 torch.float32, "cuda")
+    q = torch.as_tensor(ref.q[:, 1:-1, 1:-1], dtype=torch.float32,
+                        device="cuda").contiguous()
+    for _ in range(n):
+        q = step(q, st, ref.dt, cfg)
+    assert torch.equal(torch.as_tensor(p.q[:, 1:-1, 1:-1],
+                                       dtype=torch.float32), q.cpu())
 
 
 # -- GP-closed kernels --------------------------------------------------------
