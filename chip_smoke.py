@@ -16,7 +16,14 @@ agree on a run (deterministic and GP), drives the elastic (EHL) paths
 elastic with frozen surrogates, the flagship rough-surface EHL GP
 configuration, adaptive dt on the device), checks the physics against
 the analytic Sommerfeld solution, and holds each kernel against its twin
-again on the main paths' 1024² inputs before timing both.  The plain
+again on the main paths' 1024² inputs before timing both.  The blocked
+Cholesky and triangular solve (2k) are held bit for bit against their
+twins and within the reference's tolerance against torch.linalg at n
+256-2048, forward and backward; the per-step GP loop (3q) runs the GP
+example configurations non-silent, the 1D journal held in float64
+against the CPU and in float32 step by step against the same route on
+the twins; the half-space on cuFFT is held against its float64 CPU path
+on FFT grids of 1024², 1026², 2050² and 2052² (3r).  The plain
 (uncompensated) whole-run kernels are held bit for bit against K1 and
 K3 launched once per step (2i), then drive bench.py's FV throughput run
 (3o: the whole run in one launch at 512², temporally blocked sweeps at
@@ -31,6 +38,7 @@ the ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -860,17 +868,21 @@ def ehl_checks(label, q, h, ls, px, py, dt, cfg):
 
 
 def launched():
+    from gapflow_torch.ops import cholesky as C
     from gapflow_torch.ops import stencil as S
     from gapflow_torch.ops import stencil_gp as G
-    return {k: v for k, v in {**S.LAUNCHES, **G.LAUNCHES}.items() if v}
+    return {k: v for k, v in {**S.LAUNCHES, **G.LAUNCHES,
+                              **C.LAUNCHES}.items() if v}
 
 
 def reset_all():
+    from gapflow_torch.ops import cholesky as C
     from gapflow_torch.ops import stencil as S
     from gapflow_torch.ops import stencil_gp as G
     torch.cuda.synchronize()
     S.reset_launches()
     G.reset_launches()
+    C.reset_launches()
 
 
 def expect_launches(label, want):
@@ -1091,18 +1103,75 @@ def k5_empty_check(label, p, reps=0):
     return err, k_ms
 
 
+def twin_step(cfg, active_dims, use_gp):
+    """The GP kernel route's step with the pass-2 pressure, run on the
+    kernels' plain twins (in the state's dtype, on its device):
+    ``step(q, topo, extra, dt, step_idx, gp_state) -> (q, p)`` on
+    ghost-inclusive arrays, as ``core.gp_step.make_gp_step_core``'s."""
+    from gapflow_torch.core.gp_step import _wrap_pad, cast_gp_state
+    from gapflow_torch.ops import stencil as S
+    from gapflow_torch.ops import stencil_gp as G
+
+    def step(q, topo, extra, dt, step_idx, gp_state):
+        ops = G.prep_gp_ops(cast_gp_state(gp_state, q.dtype), active_dims,
+                            use_gp)
+        q_int = q[:, 1:-1, 1:-1].contiguous()
+        if S._fully_periodic(cfg):
+            st = S.interior_statics(topo, extra, q.dtype, q.device)
+            q_int, p = G.gp_step_ref(q_int, st, dt, cfg, ops)
+            p = _wrap_pad(p)
+        else:
+            st = S.ghost_statics(topo, extra, q.dtype, q.device)
+            q_int, p = G.gp_step_bc_ref(q_int, st, dt, cfg, ops, need_p=True)
+        return S.with_ghosts(q_int, cfg), p
+    return step
+
+
+class twin_route:
+    """Within the block, the pass-2 EHL loop's step is the kernel route
+    run on the kernels' plain twins (:func:`twin_step`): the float64
+    counterpart of the float32 kernel route."""
+
+    def __enter__(self):
+        import gapflow_torch.core.ehl as E
+        self.orig = E.make_gp_step_core
+        E.make_gp_step_core = lambda cfg, dims, nf, use, *a, **k: \
+            twin_step(cfg, dims, use)
+
+    def __exit__(self, *exc):
+        import gapflow_torch.core.ehl as E
+        E.make_gp_step_core = self.orig
+
+
+# phase 3n: the f32 kernel route's distance from the same route in
+# float64 (its twins) against the f32 plain step's own distance from the
+# float64 plain step
+ADAPTIVE_ROUTE_FACTOR = 2.
+
+
 def adaptive_check(err):
     """Phase 3n: Problem.run() on the adaptive EHL line contact (the
     pass-2 route with dt on the device, K5 without surrogates), the dt
     after every chunk recorded; then the same chunks on the f32 plain
-    step.  Returns the kernel route's launches."""
+    step, on the same route in float64 (the kernels' twins on the card)
+    and on the float64 plain step.  The parabolic gap is not periodic:
+    on the periodic grid the kernel route (interior statics, wrapped) and
+    the plain step (the ghost cells' analytic slopes) differ at the seam
+    by construction, as in the JAX package, so q is held route against
+    route: the f32 kernel route's distance from the float64 twin route
+    to at most ADAPTIVE_ROUTE_FACTOR times the f32 plain step's distance
+    from the float64 plain step.  Returns the kernel route's launches."""
     from gapflow_torch.validate import kernel_vs_plain_err
     runs = {}
-    for label, kernels in (("kernel route", True), ("plain step", False)):
-        p = problem(adaptive_yaml(ADAPTIVE_IT))
+    for label, kernels, dtype in (
+            ("kernel route", True, None),
+            ("plain step", False, None),
+            ("kernel route f64 (twins)", "twins", torch.float64),
+            ("plain step f64", False, torch.float64)):
+        p = problem(adaptive_yaml(ADAPTIVE_IT), dtype)
         p._pre_run()
         dts, chunks = [p.dt], []
-        if kernels:
+        if kernels is True:
             run_chunk = p._run_steps_ehl_pass2
 
             def record(n, run_chunk=run_chunk, p=p):
@@ -1124,33 +1193,38 @@ def adaptive_check(err):
         else:
             reset_all()
             t0 = time.perf_counter()
-            for n in runs["kernel route"][3]:
-                p._run_steps_ehl_pass2(n, allow_pallas=False)
-                dts.append(p.dt)
+            with (twin_route() if kernels == "twins"
+                  else contextlib.nullcontext()):
+                for n in runs["kernel route"][3]:
+                    p._run_steps_ehl_pass2(n, allow_pallas=False)
+                    dts.append(p.dt)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            expect_launches("3n plain", {})
+            expect_launches(f"3n {label}", {})
         check_state(f"3n {label}", p, ADAPTIVE_IT)
         print(f"  {label}: wall {wall:.3f} s, dt from {dts[0]:.6e} to "
               f"{dts[-1]:.6e} (min {min(dts):.6e}, max {max(dts):.6e} over "
               f"{len(dts) - 1} chunks), simtime {p.simtime:.9e} s")
         runs[label] = (torch.as_tensor(p.q, dtype=torch.float64), dts,
                        p.simtime, chunks)
-    (qk, dk, tk, _), (qp, dp, tp, _) = runs.values()
-    d_q = kernel_vs_plain_err(qk, qp)
+    (qk, dk, tk, _), (qp, dp, tp, _), (qk64, *_), (qp64, *_) = \
+        runs.values()
     d_dt = max(abs(a / b - 1.) for a, b in zip(dk, dp))
     d_t = abs(tk / tp - 1.)
-    # q is printed, not held: the parabolic gap is not periodic, and on
-    # the periodic grid the kernel route (interior statics, wrapped) and
-    # the plain step (the ghost cells' analytic slopes) differ at the seam
-    # by construction, as in the JAX package (1e-5 scaled in float64
-    # after 300 steps on the CPU, amplified by float32 rounding)
+    d_k, d_p = kernel_vs_plain_err(qk, qk64), kernel_vs_plain_err(qp, qp64)
     print(f"  kernel route vs f32 plain step: dt {d_dt:.3e} relative (max "
-          f"over the chunks), simtime {d_t:.3e} relative; q {d_q:.3e} "
-          f"scaled (seam convention, not held)")
+          f"over the chunks), simtime {d_t:.3e} relative, q "
+          f"{kernel_vs_plain_err(qk, qp):.3e} scaled (the seam convention; "
+          f"the float64 routes "
+          f"{kernel_vs_plain_err(qk64, qp64):.3e}); f32 kernel route vs its "
+          f"float64 twin route {d_k:.3e}, f32 plain step vs float64 plain "
+          f"step {d_p:.3e} (limit {ADAPTIVE_ROUTE_FACTOR:g} x)")
     if not (np.isfinite(d_dt) and max(d_dt, d_t) < ROUTE_TOL):
         raise RuntimeError(f"3n routes disagree: dt {d_dt}, simtime {d_t} "
                            f"(limit {ROUTE_TOL})")
+    if not (np.isfinite(d_k) and d_k <= ADAPTIVE_ROUTE_FACTOR * d_p):
+        raise RuntimeError(f"3n: f32 kernel route {d_k} from its float64 "
+                           f"route, f32 plain step {d_p} from its own")
     return lau
 
 
@@ -1332,10 +1406,11 @@ def plain_route_check():
     f32 routes part by their closures' rounding, so each is measured
     against the plain step run in float64, the kernel route held to
     twice the f32 plain step's own distance.  K3p on the BWR + Eyring
-    asperity is printed beside the f32 plain step's distance after a
-    one-ulp nudge of the density (that model amplifies last-bit
-    differences by orders of magnitude within a few steps, PERF.md).
-    Then validate.pallas_vs_xla_err."""
+    asperity is held that way from its own state too: that model
+    amplifies last-bit differences by orders of magnitude within a few
+    steps (PERF.md), so two f32 routes part by more than ROUTE_TOL while
+    each stays as close to float64 as the other.  Then
+    validate.pallas_vs_xla_err."""
     from gapflow_torch.validate import (BC_CASES, kernel_vs_plain_err,
                                         pallas_vs_xla_err, perturbed_state)
     n, steps = N_CHECK, PLAIN_ROUTE_STEPS
@@ -1345,11 +1420,6 @@ def plain_route_check():
         p._pre_run()
         if amp:
             p.q[...] = perturbed_state(p, seed=0, amp=amp).q.cpu().numpy()
-        if route == "nudged":
-            rho = p.q[0].astype(np.float32)
-            up = np.random.default_rng(0).random(rho.shape) < 0.5
-            p.q[0] = np.where(up, np.nextafter(rho, np.float32(1e30)),
-                              np.nextafter(rho, np.float32(-1e30)))
         reset_all()
         if route == "kernels":
             p.run_steps_fast(steps, compensated=False)
@@ -1361,19 +1431,33 @@ def plain_route_check():
         return torch.as_tensor(p.q, dtype=torch.float64), got
 
     err = kernel_vs_plain_err
-    for label, make, want, held in (
+
+    def against_float64(label, make, amp):
+        qk, _ = run(make, "kernels", amp)
+        qp, _ = run(make, "plain step", amp)
+        q64, _ = run(make, "plain step", amp, torch.float64)
+        dk, dp = err(qk, q64), err(qp, q64)
+        start = f"the state perturbed by {amp:g}" if amp else "its own state"
+        print(f"    from {start}: kernel route vs f32 plain step "
+              f"{err(qk, qp):.3e}; to the float64 plain step: kernel route "
+              f"{dk:.3e}, f32 plain step {dp:.3e} (limit 2 x)")
+        if not (np.isfinite(dk) and dk < 2 * dp):
+            raise RuntimeError(f"3p {label}: kernel route {dk} from float64, "
+                               f"f32 plain step {dp}")
+
+    for label, make, want, chaotic in (
             ("journal", lambda dtype: problem(journal_yaml_for(n), dtype),
-             {"plain_run": 1}, True),
+             {"plain_run": 1}, False),
             ("inclined slider", lambda dtype: problem(inclined_yaml(
                 n, 1000000, adaptive=0, dt=1e-9), dtype),
-             {"plain_steps_bc": steps // 4}, True),
+             {"plain_steps_bc": steps // 4}, False),
             ("journal D/N x, Barus + Eyring", lambda dtype: problem(
                 journal_yaml_for(n, n, *BC_CASES["dn_x_barus_eyring"],
                                  dt=2e-11), dtype),
-             {"plain_steps_bc": steps // 2}, True),
+             {"plain_steps_bc": steps // 2}, False),
             ("asperity BWR + Eyring", lambda dtype: problem(asperity_yaml(
                 n, 1000000, adaptive=0), dtype),
-             {"plain_steps_bc": steps // 2}, False)):
+             {"plain_steps_bc": steps // 2}, True)):
         qk, got = run(make, "kernels")
         if got != want:
             raise RuntimeError(f"3p {label}: launches {got}, expected {want}")
@@ -1381,26 +1465,14 @@ def plain_route_check():
         if got:
             raise RuntimeError(f"3p {label} plain step launched {got}")
         d = err(qk, qp)
-        line = (f"  {label} {n}x{n}, {steps} steps: plain kernel route vs "
-                f"f32 plain step: max scaled diff {d:.3e}")
-        if not held:
-            qn, _ = run(make, "nudged")
-            print(f"{line}; the f32 plain step after a one-ulp nudge of "
-                  f"the density {err(qn, qp):.3e} (not held)")
-            continue
-        print(line)
-        if not (np.isfinite(d) and d < ROUTE_TOL):
+        print(f"  {label} {n}x{n}, {steps} steps: plain kernel route vs "
+              f"f32 plain step: max scaled diff {d:.3e}"
+              + ("" if chaotic else f" (limit {ROUTE_TOL:g})"))
+        if chaotic:
+            against_float64(label, make, 0.)
+        elif not (np.isfinite(d) and d < ROUTE_TOL):
             raise RuntimeError(f"3p {label}: {d} >= {ROUTE_TOL}")
-        qk, _ = run(make, "kernels", 1e-3)
-        qp, _ = run(make, "plain step", 1e-3)
-        q64, _ = run(make, "plain step", 1e-3, torch.float64)
-        dk, dp = err(qk, q64), err(qp, q64)
-        print(f"    from the state perturbed by 1e-3: kernel route vs f32 "
-              f"plain step {err(qk, qp):.3e}; to the float64 plain step: "
-              f"kernel route {dk:.3e}, f32 plain step {dp:.3e}")
-        if not (np.isfinite(dk) and dk < 2 * dp):
-            raise RuntimeError(f"3p {label}: kernel route {dk} from float64, "
-                               f"f32 plain step {dp}")
+        against_float64(label, make, 1e-3)
     reset_all()
     e = pallas_vs_xla_err(device=DEVICE)
     print(f"  validate.pallas_vs_xla_err() (journal 256x256, 8 steps, "
@@ -1476,6 +1548,647 @@ def plain_kernel_times(n=N, reps=20, plain_reps=2):
     errs["plain_steps_bc"] = max(errs["plain_steps_bc"],
                                  errs.pop("plain_steps_bc (Eyring)"))
     return errs, times, bounds
+
+
+# -- K10: blocked Cholesky and triangular solve ------------------------------
+
+K10_SIZES = (256, 512, 1024, 2048)
+# against torch.linalg, the reference's tolerance for its kernels against
+# XLA (tests/test_cholesky.py:27,38), elementwise |out - ref| <= atol +
+# rtol |ref|; against their twins the kernels are held bit for bit
+K10_RTOL, K10_ATOL = 2e-4, 5e-5
+K10_GRAD_N = 512
+# the symmetrised gradient of sum(sin(cholesky(A))) against autograd
+# through torch.linalg.cholesky, max difference over the largest entry:
+# float32 rounding of two factorizations and of the backward's solves on a
+# matrix of condition number < 5 (A A^T / n + I)
+K10_GRAD_TOL = 1e-4
+
+
+def spd(n, seed):
+    """A A^T / n + I from numpy's generator, float32 on the card."""
+    A = np.random.default_rng(seed).standard_normal((n, n))
+    return torch.tensor(A @ A.T / n + np.eye(n), dtype=torch.float32,
+                        device=DEVICE)
+
+
+def k10_close(label, out, ref):
+    """Max abs error; raises unless |out - ref| <= atol + rtol |ref|."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise RuntimeError(f"{label}: non-finite values")
+    excess = float(((out - ref).abs()
+                    - (K10_ATOL + K10_RTOL * ref.abs())).max())
+    abs_err = float((out - ref).abs().max())
+    print(f"  {label}: max abs err {abs_err:.3e} (max excess over atol + "
+          f"rtol |ref|: {excess:.3e})")
+    if not excess <= 0.:
+        raise RuntimeError(f"{label}: outside rtol {K10_RTOL}, atol "
+                           f"{K10_ATOL}")
+    return abs_err
+
+
+def k10_same(label, out, ref):
+    """Max abs error (0); raises unless ``out`` equals ``ref`` bit for bit:
+    the twins repeat the kernels' operations in their order."""
+    torch.cuda.synchronize()
+    same = torch.equal(out, ref)
+    abs_err = float((out - ref).abs().max())
+    print(f"  {label}: {'bit for bit' if same else 'DIFFERENT'} (max abs "
+          f"err {abs_err:.3e})")
+    if not (same and torch.isfinite(out).all()):
+        raise RuntimeError(f"{label}: not bit for bit equal")
+    return abs_err
+
+
+def k10_bound(n, m=None):
+    """(bound_ms, bound_by): the Cholesky's n^3/3 multiply-adds, or the
+    solve's n^2 m / 2, one fused multiply-add each at the FP32 issue rate
+    (the function needs no more; the kernel's --fmad=false is a choice of
+    its build), against its bytes (the factor: A read, L written; the
+    solve: L and B read, X written) at the HBM rate."""
+    if m is None:
+        ops, nbytes = n ** 3 / 3., 2. * n * n * 4
+    else:
+        ops, nbytes = n * n * m / 2., (n * n + 2. * n * m) * 4
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k10_profile(C, A, L, B):
+    """Where one call of each K10 entry goes on the card: torch.profiler's
+    device time per CUDA kernel (and copy) over one call, beside the
+    call's own event time.  Prints only; where the profiler records no
+    device time it says so."""
+    from torch.profiler import ProfilerActivity, profile
+    for label, fn in (("cholesky", lambda: C.cholesky_kernel(A)),
+                      ("tril_solve", lambda: C.tril_solve_kernel(L, B))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = []
+        for e in prof.key_averages():
+            dev = getattr(e, "device_time_total", None)
+            if dev is None:
+                dev = getattr(e, "cuda_time_total", 0.)
+            if dev and not e.key.startswith("aten::"):
+                rows.append((dev, e.count, e.key))
+        total = sum(r[0] for r in rows)
+        if not rows:
+            print(f"  profile {label} n {A.shape[0]}: no device time "
+                  f"recorded")
+            continue
+        print(f"  profile {label} n {A.shape[0]}, one call: device time "
+              f"{total / 1e3:.4f} ms over "
+              + "; ".join(f"{k[:40]} x{c} {d / 1e3:.4f} ms"
+                          for d, c, k in sorted(rows, reverse=True)[:6]))
+
+
+def linalg_phase():
+    """Phase 2k (the caller sets GAPFLOW_PALLAS_LINALG=1): cholesky and
+    tril_solve of ops/cholesky.py at K10_SIZES (the solve with m = 128 and m =
+    n), and the gradient of sum(sin(cholesky(A))) at K10_GRAD_N: counts
+    from 0 before these calls, read after them (one launch sequence per
+    call, the backward's two upper solves included); then each output
+    against its twin and torch.linalg, the gradient against autograd
+    through torch.linalg.cholesky, and each kernel's time per call beside
+    its twin's, the library's and its bound.  Returns (launches, errs,
+    times, bounds, library ms) keyed by kernel."""
+    from gapflow_torch.ops import cholesky as C
+    mats = {n: spd(n, n) for n in K10_SIZES}
+    rhs = {(n, m): torch.tensor(
+        np.random.default_rng(n + m).standard_normal((n, m)),
+        dtype=torch.float32, device=DEVICE)
+        for n in K10_SIZES for m in sorted({128, n})}
+    A_g = mats[K10_GRAD_N].clone().requires_grad_(True)
+
+    torch.cuda.synchronize()
+    C.reset_launches()
+    Ls = {n: C.cholesky(A) for n, A in mats.items()}
+    Xs = {nm: C.tril_solve(Ls[nm[0]], B) for nm, B in rhs.items()}
+    torch.sum(torch.sin(C.cholesky(A_g))).backward()
+    torch.cuda.synchronize()
+    launches = dict(C.LAUNCHES)
+    want = {"cholesky": len(mats) + 1, "tril_solve": len(rhs) + 2}
+    print(f"  launch sequences {launches} (expected {want}); CUDA kernels "
+          f"per call: "
+          + ", ".join(f"{n}: {C.kernel_launches(n)}" for n in K10_SIZES))
+    if launches != want:
+        raise RuntimeError(f"K10: launches {launches}, expected {want}")
+
+    errs = {"cholesky": 0., "tril_solve": 0.}
+    for n, A in mats.items():
+        L = Ls[n]
+        if not torch.equal(L, torch.tril(L)):
+            raise RuntimeError(f"cholesky {n}: upper triangle not zero")
+        errs["cholesky"] = max(errs["cholesky"], k10_same(
+            f"cholesky n {n} vs twin", L, C._chol_ref(A)))
+        k10_close(f"cholesky n {n} vs torch.linalg.cholesky", L,
+                  torch.linalg.cholesky(A))
+    for (n, m), B in rhs.items():
+        L = Ls[n]
+        errs["tril_solve"] = max(errs["tril_solve"], k10_same(
+            f"tril_solve n {n}, m {m} vs twin", Xs[n, m],
+            C._trsm_ref(L, B)))
+        k10_close(f"tril_solve n {n}, m {m} vs torch.linalg."
+                  f"solve_triangular", Xs[n, m],
+                  torch.linalg.solve_triangular(L, B, upper=False))
+    A_r = mats[K10_GRAD_N].clone().requires_grad_(True)
+    torch.sum(torch.sin(torch.linalg.cholesky(A_r))).backward()
+    g, g_r = A_g.grad + A_g.grad.T, A_r.grad + A_r.grad.T
+    # the same ops with the twins in the kernels' place
+    kernels = C.cholesky_kernel, C.tril_solve_kernel
+    C.cholesky_kernel, C.tril_solve_kernel = C._chol_ref, C._trsm_ref
+    try:
+        A_t = mats[K10_GRAD_N].clone().requires_grad_(True)
+        torch.sum(torch.sin(C.cholesky(A_t))).backward()
+    finally:
+        C.cholesky_kernel, C.tril_solve_kernel = kernels
+    k10_same(f"gradient at n {K10_GRAD_N} vs the twins' gradient", A_g.grad,
+             A_t.grad)
+    g_err = float((g - g_r).abs().max() / g_r.abs().max())
+    print(f"  gradient of sum(sin(cholesky(A))) at n {K10_GRAD_N}, "
+          f"symmetrised, vs autograd through torch.linalg.cholesky: max "
+          f"diff / max entry {g_err:.3e} (limit {K10_GRAD_TOL:g})")
+    if not g_err < K10_GRAD_TOL:
+        raise RuntimeError(f"K10 gradient: {g_err} >= {K10_GRAD_TOL}")
+
+    per = {}
+    for n, A in mats.items():
+        L, B = Ls[n], rhs[n, n]
+        reps = max(2, 4096 // n)
+        per[n] = (
+            time_ms(lambda: C.cholesky_kernel(A), reps),
+            time_ms(lambda: C._chol_ref(A), 1),
+            time_ms(lambda: torch.linalg.cholesky(A), reps),
+            time_ms(lambda: C.tril_solve_kernel(L, B), reps),
+            time_ms(lambda: C._trsm_ref(L, B), 1),
+            time_ms(lambda: torch.linalg.solve_triangular(L, B, upper=False),
+                    reps),
+            time_ms(lambda: C.tril_solve_kernel(L, rhs[n, 128]), reps))
+        bc, bs = k10_bound(n), k10_bound(n, n)
+        print(f"  n {n}: cholesky kernel {per[n][0]:.4f} ms/call, twin "
+              f"{per[n][1]:.4f}, torch.linalg.cholesky {per[n][2]:.4f}, "
+              f"bound {bc[0]:.4f} ({bc[1]}); tril_solve m {n}: kernel "
+              f"{per[n][3]:.4f} ms/call, twin {per[n][4]:.4f}, "
+              f"torch.linalg.solve_triangular {per[n][5]:.4f}, bound "
+              f"{bs[0]:.4f} ({bs[1]}); m 128: kernel {per[n][6]:.4f} "
+              f"(bound {k10_bound(n, 128)[0]:.4f})")
+    n = K10_SIZES[-1]
+    k10_profile(C, mats[n], Ls[n], rhs[n, n])
+    times = {"cholesky": per[n][:2], "tril_solve": per[n][3:5]}
+    bounds = {"cholesky": k10_bound(n), "tril_solve": k10_bound(n, n)}
+    library = {"cholesky": per[n][2], "tril_solve": per[n][5]}
+    return launches, errs, times, bounds, library
+
+
+# -- the half-space on cuFFT at size -----------------------------------------
+
+HALFSPACE_SIZES = (1024, 2050)   # FFT grids 1024², 1026², 2050², 2052²
+# the card's deformation against the port's float64 CPU path on the same
+# pressure, max difference over max |u|: float64 FFTs differ in their
+# summation order only; float32 carries cuFFT's single-precision rounding
+# (~eps log2 N of the field's norm)
+HALFSPACE_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+def halfspace_check():
+    """Phase 3r: gapflow_torch/elastic.py on cuFFT (float32 and float64)
+    against its float64 CPU path on one pressure (numpy, seed 0), fully
+    periodic and free half-spaces, at N x N for N in HALFSPACE_SIZES: the
+    FFT grid N x N (``fft_grid="interior"``) and (N+2) x (N+2)
+    (``"ghost"``)."""
+    from gapflow_torch.elastic import ElasticDeformation
+    for n in HALFSPACE_SIZES:
+        p = np.random.default_rng(0).standard_normal((n + 2, n + 2))
+        for per in (True, False):
+            grid = {"dx": 1e-5, "dy": 1e-5, "Nx": n, "Ny": n, "Lx": 1e-5 * n,
+                    "Ly": 1e-5 * n, "bc_xE_P": [per] * 3,
+                    "bc_yS_P": [per] * 3}
+            for fft_grid in ("interior", "ghost"):
+                def u_of(device, dtype):
+                    ed = ElasticDeformation(E=5e9, v=0.3, alpha_underrelax=1.,
+                                            grid=grid, n_images=0,
+                                            fft_grid=fft_grid, device=device,
+                                            dtype=dtype)
+                    u = ed.get_deformation(torch.as_tensor(p, dtype=dtype))
+                    return u.double().cpu()
+                ref = u_of("cpu", torch.float64)
+                for dtype, tol in HALFSPACE_TOL.items():
+                    t0 = time.perf_counter()
+                    u = u_of(DEVICE, dtype)
+                    err = float((u - ref).abs().max() / ref.abs().max())
+                    print(f"  {'periodic' if per else 'free'} {fft_grid} "
+                          f"({n + 2 if fft_grid == 'ghost' else n}^2 FFT "
+                          f"grid) {str(dtype)[6:]}: max diff / max |u| "
+                          f"{err:.3e} (limit {tol:g}, "
+                          f"{time.perf_counter() - t0:.2f} s)")
+                    if not err < tol:
+                        raise RuntimeError(f"half-space {n} {per} {fft_grid} "
+                                           f"{dtype}: {err} >= {tol}")
+
+
+# -- the per-step GP loop ----------------------------------------------------
+
+GP_LOOP_IT = 100         # phase 3q: steps of each example configuration
+GP_LOOP_JOURNAL_IT, GP_LOOP_JOURNAL_WF = 200, 50
+# phase 3q: the 1D journal held in float64 on the card (the plain GP step,
+# and the fused steps on the kernels' twins) against the port's float64
+# CPU run, and the float32 routes against them
+GP_PARITY_IT, GP_PARITY_WF = 30, 10
+GP_PARITY_TOL = 1e-6     # scaled q, tests/test_torch_gp_host.py's limit
+# the float32 kernel route against the same route on the twins in
+# float32, step by step (scaled rho and jx): each fused step is held to
+# its twin on the same input at TOL, and the two routes are held to TOL
+# too (they agreed bit for bit over the 30 steps on an H100 80GB HBM3)
+GP_LOOP_TWIN_TOL = TOL
+# the float32 kernel route's distance from the float64 run against the
+# float32 plain step's own, up to the first step at which the
+# acquisitions part; both are O(10) scaled from the float32 GP mean
+# (fault 1), so this bounds the route only coarsely
+GP_LOOP_ROUTE_FACTOR = 2.
+
+
+def example_yaml(name, out, max_it, write_freq=None, edits=(), n=None,
+                 silent=False):
+    """examples/config/<name>.yaml with its output under ``out`` (and its
+    training datasets there), ``max_it`` steps and no convergence stop;
+    ``edits`` (old, new) text replacements; ``n`` points per axis."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "config", f"{name}.yaml")
+    with open(path) as fh:
+        text = fh.read()
+    text = re.sub(r"output: .*", f"output: {out}", text)
+    text = re.sub(r"use_tstamp: .*", f"use_tstamp: False\n    silent: "
+                  f"{silent}", text)
+    text = re.sub(r"max_it: .*", f"max_it: {max_it}", text)
+    text = re.sub(r"^(\s*)tol: .*", r"\1tol: 1e-30", text, flags=re.M)
+    if write_freq is not None:
+        text = re.sub(r"write_freq: .*", f"write_freq: {write_freq}", text)
+    if n is not None:
+        text = re.sub(r"N([xy]): .*", rf"N\1: {n}", text)
+    for old, new in edits:
+        if old not in text:
+            raise RuntimeError(f"{name}: no {old!r} to edit")
+        text = text.replace(old, new)
+    return text
+
+
+#: the four GP example configurations at their own grids, and two frozen
+#: variants whose steps between outputs are fused (K6 on D/N edges, K5 on
+#: periodic ones)
+_FROZEN = (("max_steps: 5", "max_steps: 5\n        active_learning: False"),)
+GP_EXAMPLES = (
+    ("asperity_2d_lj_gp", (("num: 2", "num: 2\n    seed: 0"),)),
+    ("journal_1d_dowson-higginson_gp", ()),
+    ("journal_2d_dowson-higginson_gp", ()),
+    ("parabolic_1d_lj_gp", ()),
+    ("asperity_2d_lj_gp", (("num: 2", "num: 2\n    seed: 0"),) + _FROZEN),
+    ("journal_2d_dowson-higginson_gp", _FROZEN),
+)
+# the 1D journal of tests/test_torch_gp_host.py (a well-conditioned
+# pressure surrogate) with the pressure frozen and one acquisition per
+# episode, so that the wall stress pauses and the steps between outputs
+# are fused (K6 on the D/N x edges in float32)
+GP_PARITY_EDITS = (
+    ("init_width: 1.e-6", "init_width: 1.e-2"),
+    ("obs_stddev: 100.", "obs_stddev: 1.e8\n        active_dims: [0]\n"
+     "        active_learning: False"),
+    ("max_steps: 5", "max_steps: 1"))
+
+
+def gp_models(p):
+    return [m for m in (p.pressure, p.wall_stress_xz, p.wall_stress_yz)
+            if m.is_gp_model]
+
+
+def run_gp_loop(text, dtype=torch.float32, device=None, record=None,
+                fits=None, draws=None):
+    """Problem.run() of a non-silent (per-step) GP configuration with the
+    launch counts set to 0 just before it.  ``record``: a list that gets
+    (q, dt, database size, acquisitions so far, fused steps so far) after
+    every step;
+    ``fits``: a dict (surrogate, training size) -> hyperparameters, the
+    run's own fits recorded into it, or taken from it where present;
+    ``draws``: a list of the mock oracle's noise draws in order, recorded
+    into it when empty, else taken from it.  Returns (problem, launches,
+    wall, times), times the GP inference, training and MD seconds."""
+    import contextlib
+    import io
+    from gapflow_torch import Problem
+    from gapflow_torch.models import gp as gpmod
+    device = device or DEVICE
+    with contextlib.redirect_stdout(io.StringIO()):
+        p = Problem.from_string(text, device=device, dtype=dtype)
+    acq = []
+    t_md = [0.]
+    for m in gp_models(p):
+        def acquire(var, idx=None, m=m, orig=m._active_learning):
+            acq.append(m.name)
+            orig(var, idx)
+        m._active_learning = acquire
+    add = p.database.add_data
+
+    def add_data(X):
+        t0 = time.perf_counter()
+        add(X)
+        t_md[0] += time.perf_counter() - t0
+    p.database.add_data = add_data
+    if draws is not None:
+        md = p.database._md
+        replay, own = list(draws), md.draws_fn
+
+        def draw(X):
+            if replay:
+                return replay.pop(0)
+            d = own(X)
+            draws.append(d)
+            return d
+        md.draws_fn = draw
+    if record is not None:
+        update = p.update
+
+        def recorded():
+            update()
+            record.append((p.q.copy(), float(p.dt), p.database.size,
+                           tuple(acq), p._fused_steps))
+        p.update = recorded
+    fit = gpmod.fit_hyperparameters
+    if fits is not None:
+        def keyed_fit(params0, X, Y, yerr, method="BFGS"):
+            key = (np.shape(params0["log_scale"]), np.shape(X)[0],
+                   np.ndim(Y))
+            if key not in fits:
+                fits[key] = fit(params0, X, Y, yerr, method)
+            return fits[key]
+        gpmod.fit_hyperparameters = keyed_fit
+    models = gp_models(p)
+
+    def clocks():
+        return (sum(m.cumtime_infer.total_seconds() for m in models),
+                sum(m.cumtime_train.total_seconds() for m in models),
+                t_md[0])
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            p._pre_run()
+            before = clocks()
+            reset_all()
+            t0 = time.perf_counter()
+            p.run()
+            if device != "cpu":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        gpmod.fit_hyperparameters = fit
+    times = tuple(b - a for a, b in zip(before, clocks()))
+    p.acquisitions = acq
+    return p, launched(), wall, times
+
+
+def check_gp_outputs(label, p, max_it):
+    """The per-step run ended valid at max_it and wrote its frames and GP
+    histories."""
+    from gapflow_torch.config import read_history_csv
+    from gapflow_torch.nc import NCReader
+    check_state(label, p, max_it)
+    if p._route != "host_loop":
+        raise RuntimeError(f"{label} took {p._route}")
+    wf = p.options["write_freq"]
+    with NCReader(os.path.join(p.outdir, "sol.nc")) as nc:
+        frames = nc.num_frames("solution")
+        var = "pressure_var" in nc.variables
+    if frames != max_it // wf + 1 + (max_it % wf > 0) or not var:
+        raise RuntimeError(f"{label}: {frames} frames, variance {var}")
+    for m, tag in zip((p.pressure, p.wall_stress_xz, p.wall_stress_yz),
+                      ("zz", "xz", "yz")):
+        path = os.path.join(p.outdir, f"gp_{tag}.csv")
+        if os.path.exists(path) != m.is_gp_model:
+            raise RuntimeError(f"{label}: gp_{tag}.csv {os.path.exists(path)}")
+        if m.is_gp_model and read_history_csv(path)["step"][-1] != max_it:
+            raise RuntimeError(f"{label}: gp_{tag}.csv ends early")
+    return frames
+
+
+def gp_loop_phase(tmp):
+    """Phase 3q: the per-step GP loop (non-silent GP runs) on the card.
+    Returns the launches of its kernels over the phase."""
+    from gapflow_torch.validate import kernel_vs_plain_err
+    total = {}
+    for i, (name, edits) in enumerate(GP_EXAMPLES):
+        out = os.path.join(tmp, f"{i}_{name}")
+        frozen = any("active_learning: False" in e[1] for e in edits)
+        p, lau, wall, _ = run_gp_loop(example_yaml(name, out, GP_LOOP_IT,
+                                                   edits=edits))
+        frames = check_gp_outputs(name, p, GP_LOOP_IT)
+        kern = lau.get("gp_step", 0) + lau.get("gp_step_bc", 0)
+        print(f"  {name}{' (frozen)' if frozen else ''} "
+              f"{p.grid['Nx']}x{p.grid['Ny']}: {GP_LOOP_IT} steps in "
+              f"{wall:.3f} s, frames {frames}, acquisitions "
+              f"{len(p.acquisitions)} {p.acquisitions}, database "
+              f"{p.database.size}, fused steps {p._fused_steps}, launches "
+              f"{lau}, dt {p.dt:.4e}")
+        if set(lau) - {"gp_step", "gp_step_bc"} or kern != p._fused_steps:
+            raise RuntimeError(f"{name}: launches {lau} for "
+                               f"{p._fused_steps} fused steps")
+        if frozen and not kern:
+            raise RuntimeError(f"{name} (frozen): no fused step")
+        if kern:
+            print(f"    its fused-step kernel: {gp_kernel_ms(p):.4f} ms")
+        for k, v in lau.items():
+            total[k] = total.get(k, 0) + v
+
+    n = N
+    print(f"  the GP journal of 3f non-silent, {n} x {n}, "
+          f"{GP_LOOP_JOURNAL_IT} steps, write_freq {GP_LOOP_JOURNAL_WF}:")
+    text = gp_journal_yaml(n, max_it=GP_LOOP_JOURNAL_IT).replace(
+        "write_freq: 1000000", f"write_freq: {GP_LOOP_JOURNAL_WF}").replace(
+        "silent: True", "silent: False").replace(
+        "output: data/smoke", f"output: {os.path.join(tmp, 'journal_3f')}")
+    p, lau, wall, (t_inf, t_train, t_md) = run_gp_loop(text)
+    check_gp_outputs("3q journal", p, GP_LOOP_JOURNAL_IT)
+    for k, v in lau.items():
+        total[k] = total.get(k, 0) + v
+    k_ms = 0.
+    if p._fused_steps:
+        k_ms = gp_kernel_ms(p)
+    t_kernel = p._fused_steps * k_ms / 1e3
+    t_host = t_train + t_md
+    print(f"    wall {wall:.3f} s = fused-step kernel {t_kernel:.3f} s "
+          f"({p._fused_steps} x {k_ms:.4f} ms) + GP inference over the grid "
+          f"(means and variances, float64) {t_inf:.3f} s + host protocol "
+          f"(BFGS {t_train:.3f} s, MD oracle {t_md:.3f} s) {t_host:.3f} s + "
+          f"rest (passes, host copies, writes) "
+          f"{wall - t_kernel - t_inf - t_host:.3f} s; acquisitions "
+          f"{len(p.acquisitions)}, launches {lau}; 3f's chunked route above")
+
+    print(f"  the 1D journal (tests/test_torch_gp_host.py's surrogates, "
+          f"frozen pressure, one acquisition per episode), "
+          f"{GP_PARITY_IT} steps: float64 on the card vs float64 on the CPU, "
+          f"float32 routes against the same routes")
+    fits, draws, runs = {}, [], {}
+    for label, dtype, device, how in (
+            ("cpu f64", torch.float64, "cpu", "plain"),
+            ("card f64", torch.float64, None, "plain"),
+            ("card f64 twin route", torch.float64, None, "twins"),
+            ("card f32 kernel route", torch.float32, None, "shadow"),
+            ("card f32 twin route", torch.float32, None, "twins"),
+            ("card f32 plain step", torch.float32, None, "plain")):
+        rec = []
+        text = example_yaml("journal_1d_dowson-higginson_gp",
+                            os.path.join(tmp, label.replace(" ", "_")),
+                            GP_PARITY_IT, GP_PARITY_WF, GP_PARITY_EDITS)
+        with fused_step(how) as shadow:
+            p, lau, wall, _ = run_gp_loop(text, dtype, device, rec, fits,
+                                          draws)
+        check_gp_outputs(label, p, GP_PARITY_IT)
+        print(f"    {label}: acquisitions {p.acquisitions}, fused steps "
+              f"{p._fused_steps}, launches {lau}, wall {wall:.3f} s")
+        want = p._fused_steps if how == "shadow" else 0
+        if sum(lau.values()) != want or set(lau) - {"gp_step_bc"}:
+            raise RuntimeError(f"{label}: launches {lau}, {want} expected")
+        if how == "shadow":
+            if not (want and len(shadow) == want):
+                raise RuntimeError(f"{label}: {want} fused steps, "
+                                   f"{len(shadow)} held")
+            print(f"    its {len(shadow)} fused steps, each against its twin "
+                  f"on the same input: max scaled err "
+                  f"{max(e[0] for e in shadow):.3e} (limit {TOL:g}), "
+                  f"pressure {max(e[1] for e in shadow):.3e} (limit "
+                  f"{P_TOL:g}); the kernel on the final state: "
+                  f"{gp_kernel_ms(p):.4f} ms")
+            for k, v in lau.items():
+                total[k] = total.get(k, 0) + v
+        runs[label] = rec
+
+    def dist(a, b):
+        # rho and jx: the line contact's jy is zero, bar rounding
+        return kernel_vs_plain_err(torch.as_tensor(a[:2]),
+                                   torch.as_tensor(b[:2]))
+
+    def held(label, run, ref, tol):
+        """``run`` against ``ref`` step by step: identical database,
+        acquisitions and fused steps at every step, q within ``tol``."""
+        worst = 0.
+        for i, (a, b) in enumerate(zip(runs[run], runs[ref])):
+            if a[2:] != b[2:]:
+                raise RuntimeError(f"{label}: step {i}: database {a[2]} vs "
+                                   f"{b[2]}, acquisitions {a[3]} vs {b[3]}, "
+                                   f"fused steps {a[4]} vs {b[4]}")
+            worst = max(worst, dist(a[0], b[0]))
+        print(f"    {label}: identical acquisitions and fused steps at "
+              f"every step, rho and jx max scaled diff {worst:.3e} (limit "
+              f"{tol:g})")
+        if not worst < tol:
+            raise RuntimeError(f"{label}: {worst} >= {tol}")
+
+    held("card f64 vs CPU f64", "card f64", "cpu f64", GP_PARITY_TOL)
+    held("card f64 twin route vs CPU f64", "card f64 twin route", "cpu f64",
+         GP_PARITY_TOL)
+    held("card f32 kernel route vs card f32 twin route",
+         "card f32 kernel route", "card f32 twin route", GP_LOOP_TWIN_TOL)
+    dk = dp = 0.
+    upto = fused = 0
+    for a, b, c in zip(runs["card f32 kernel route"],
+                       runs["card f32 plain step"], runs["card f64"]):
+        if not (a[2:4] == b[2:4] == c[2:4]):
+            break
+        upto, fused = upto + 1, a[4]
+        dk = max(dk, dist(a[0], c[0]))
+        dp = max(dp, dist(b[0], c[0]))
+    print(f"    to the card's f64 run over the {upto} steps before the "
+          f"acquisitions part ({fused} fused): f32 kernel route {dk:.3e}, "
+          f"f32 plain step {dp:.3e} (limit {GP_LOOP_ROUTE_FACTOR:g} x the "
+          f"latter)")
+    if not (fused and dk <= GP_LOOP_ROUTE_FACTOR * dp):
+        raise RuntimeError(f"3q f32 kernel route {dk} vs plain {dp} "
+                           f"({upto} steps, {fused} fused)")
+    return total
+
+
+class fused_step:
+    """Within the block, the per-step loop's fused step takes ``how``:
+    "plain", the plain GP step in every dtype (no kernel); "twins",
+    :func:`twin_step`; "shadow", the kernels, each launch held against its twin on
+    the same input (the ``as`` target gets (scaled q error, relative p
+    error) per launch).  Launch counts are the kernels' only."""
+
+    def __init__(self, how):
+        self.how = how
+        self.errs = []
+
+    def __enter__(self):
+        import gapflow_torch.problem as P
+        from gapflow_torch.core.gp_step import make_gp_step_core
+        from gapflow_torch.ops import stencil_gp as G
+        self.orig = P.make_gp_step, G.gp_step, G.gp_step_bc
+        if self.how == "plain":
+            P.make_gp_step = lambda *a: make_gp_step_core(
+                *a, allow_pallas=False)
+        elif self.how == "twins":
+            P.make_gp_step = lambda cfg, dims, nf, use: twin_step(cfg, dims,
+                                                                  use)
+        elif self.how == "shadow":
+            errs = self.errs
+
+            def held(kernel, twin):
+                def run(q_int, st, dt, cfg, ops, need_p):
+                    out = kernel(q_int, st, dt, cfg, ops, need_p=need_p)
+                    ref = twin(q_int, st, dt, cfg, ops, need_p=need_p)
+                    qk, pk = out if isinstance(out, tuple) else (out, None)
+                    qr, pr = ref if isinstance(ref, tuple) else (ref, None)
+                    e = (errors("fused step", qk, qr)[0],
+                         0. if pk is None else
+                         float((pk - pr).abs().max() / pr.abs().max()))
+                    errs.append(e)
+                    if not (e[0] < TOL and e[1] < P_TOL):
+                        raise RuntimeError(f"fused step vs its twin: {e}")
+                    return out
+                return run
+            G.gp_step = held(G.gp_step, G.gp_step_ref)
+            G.gp_step_bc = held(G.gp_step_bc, G.gp_step_bc_ref)
+            P.make_gp_step = lambda *a: make_gp_step_core(*a)
+        return self.errs
+
+    def __exit__(self, *exc):
+        import gapflow_torch.problem as P
+        from gapflow_torch.ops import stencil_gp as G
+        P.make_gp_step, G.gp_step, G.gp_step_bc = self.orig
+
+
+def gp_kernel_ms(p, reps=20):
+    """The fused step's kernel time on a per-step run's final state and
+    surrogates (K5 with its pressure or K6 with its ghost-inclusive
+    pressure), held against its twin first."""
+    from gapflow_torch.ops import stencil as S
+    from gapflow_torch.ops import stencil_gp as G
+    from gapflow_torch.core.gp_step import cast_gp_state
+    cfg = p._solver_cfg
+    models = (p.pressure, p.wall_stress_xz, p.wall_stress_yz)
+    dims = tuple(tuple(m.active_dims) if m.is_gp_model else None
+                 for m in models)
+    use = tuple(m.is_gp_model for m in models)
+    ops = G.prep_gp_ops(cast_gp_state(p._gp_state(), torch.float32), dims,
+                        use)
+    q = p._tensor(p.q)[:, 1:-1, 1:-1].contiguous()
+    topo = p._tensor(p.topo.full)
+    extra = p._tensor(p.fc.get_real_field("extra").p)
+    if S._fully_periodic(cfg):
+        st = S.interior_statics(topo, extra, torch.float32, q.device)
+        (qk, pk), (qr, pr) = (G.gp_step(q, st, p.dt, cfg, ops),
+                              G.gp_step_ref(q, st, p.dt, cfg, ops))
+        fn = lambda: G.gp_step(q, st, p.dt, cfg, ops)  # noqa: E731
+    else:
+        st = S.ghost_statics(topo, extra, torch.float32, q.device)
+        (qk, pk), (qr, pr) = (G.gp_step_bc(q, st, p.dt, cfg, ops, True),
+                              G.gp_step_bc_ref(q, st, p.dt, cfg, ops, True))
+        fn = lambda: G.gp_step_bc(q, st, p.dt, cfg, ops, True)  # noqa: E731
+    check("fused step on the run's final state", qk, qr)
+    check_p("fused step on the run's final state", pk, pr)
+    return time_ms(fn, reps)
 
 
 def main():
@@ -1605,8 +2318,8 @@ def main():
             # the JAX package's bar for its kernel (validate.py:372)
             q_err, p_err = gp_kernel_parity(pg, 16)
             print(f"  {case} {edge} cap 16, kernel vs plain GP step: q "
-                  f"{q_err:.3e} scaled, p {p_err} relative")
-            if not (q_err < P_TOL and (p_err is None or p_err < P_TOL)):
+                  f"{q_err:.3e} scaled, p {p_err:.3e} relative")
+            if not (q_err < P_TOL and p_err < P_TOL):
                 raise RuntimeError(f"{case} {edge}: kernel vs plain GP step "
                                    f"{q_err}, {p_err} >= {P_TOL}")
             if edge == "periodic" and case == "all":
@@ -1637,6 +2350,16 @@ def main():
           f"step and vs their twins ({N_CHECK} x {N_CHECK} journal, "
           f"BC_CASES, amplitude 0.01)")
     plain_kernel_checks(err)
+
+    print(f"phase 2k: K10, cholesky and tril_solve with "
+          f"GAPFLOW_PALLAS_LINALG=1 at n {', '.join(map(str, K10_SIZES))} "
+          f"(A A^T / n + I, numpy seed n), the solve with m 128 and m n, "
+          f"the gradient at n {K10_GRAD_N}")
+    os.environ["GAPFLOW_PALLAS_LINALG"] = "1"
+    try:
+        k10 = linalg_phase()
+    finally:
+        del os.environ["GAPFLOW_PALLAS_LINALG"]
 
     # -- phase 3: the main paths ------------------------------------------
     n, max_it = N, MAX_IT
@@ -1811,7 +2534,10 @@ def main():
           f"{FLAGSHIP_N}, seeded asperities, chunked active learning), "
           f"max_it {FLAGSHIP_IT}")
     pf3 = gp_problem(flagship_yaml(FLAGSHIP_N, FLAGSHIP_IT))
-    drive_gp("flagship EHL", pf3, "gp_chunked", {})
+    lf, _ = drive_gp("flagship EHL", pf3, "gp_chunked", {"gp_step_bc": 1})
+    launches["gp_step_bc"] += lf["gp_step_bc"]
+    print(f"  its K6 step with the pass-2 pressure on the final state and "
+          f"gap: {gp_kernel_ms(pf3):.4f} ms")
     if not np.isfinite(pf3.topo.full).all():
         raise RuntimeError("3m: non-finite topography")
     print(f"  max deformation {np.abs(pf3.topo.deformation).max():.4e} "
@@ -1833,6 +2559,22 @@ def main():
     print(f"phase 3p: route agreement at {N_CHECK} x {N_CHECK}, "
           f"{PLAIN_ROUTE_STEPS} steps")
     plain_route_check()
+
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="gapflow_smoke_")
+    try:
+        print(f"phase 3q: the per-step GP loop (non-silent GP runs, float32, "
+              f"output under a temporary directory): the GP example "
+              f"configurations at their own grids, {GP_LOOP_IT} steps each")
+        for k, v in gp_loop_phase(tmp).items():
+            launches[k] = launches.get(k, 0) + v
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 3r: the half-space on cuFFT against its float64 CPU path, "
+          f"N x N interiors for N in {HALFSPACE_SIZES}, both fft_grid "
+          f"conventions")
+    halfspace_check()
 
     # -- phase 4: physics ---------------------------------------------------
     from gapflow_torch.validate import sommerfeld_l2
@@ -1915,13 +2657,23 @@ def main():
                 "plain_steps_rem": "gapflow_tpu/ops/stencil.py:1306",
                 "plain_run": "gapflow_tpu/ops/stencil.py:1364",
                 "plain_steps_bc": "gapflow_tpu/ops/stencil.py:759"}
-    # no single PyTorch call computes a MacCormack step: library_ms null
+    # no single PyTorch call computes a MacCormack step: library_ms null;
+    # K10's are torch.linalg's, at n 2048 (the solve with m 2048)
+    k10_launches, k10_err, k10_times, k10_bounds, library = k10
+    for k in ("cholesky", "tril_solve"):
+        sources[k] = "gapflow_torch/csrc/cholesky.cu"
+        launches[k] = k10_launches[k]
+        err[k] = k10_err[k]
+        times[k] = k10_times[k]
+        bounds[k] = k10_bounds[k]
+    replaces.update({"cholesky": "gapflow_tpu/ops/cholesky.py:107",
+                     "tril_solve": "gapflow_tpu/ops/cholesky.py:176"})
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k],
          "replaces": replaces[k], "launches": launches[k],
          "max_abs_err": err[k], "ms": times[k][0], "plain_ms": times[k][1],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-         "library_ms": None}
+         "library_ms": library.get(k)}
         for k in replaces]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,11 +8,13 @@ learning.  Module names follow the JAX package, so each module's
 counterpart is found under the same name there.
 
 This package covers the deterministic path (YAML configuration,
-topography, the plain torch step :mod:`gapflow_torch.core.step`), the
-silent GP path (:mod:`gapflow_torch.db`, :mod:`.models.gp`,
-:mod:`.core.al_chunked`) and the elastic / EHL slice
-(:mod:`gapflow_torch.elastic`, :mod:`.core.ehl`); on an NVIDIA Hopper
-GPU they run through the CUDA kernels of :mod:`gapflow_torch.ops`
+topography, the plain torch step :mod:`gapflow_torch.core.step`), the GP
+path (:mod:`gapflow_torch.db`, :mod:`.models.gp`, :mod:`.core.al_chunked`
+for silent runs, the per-step host loop of :class:`Problem` for
+non-silent ones), the elastic / EHL slice (:mod:`gapflow_torch.elastic`,
+:mod:`.core.ehl`) and the differentiable blocked Cholesky and triangular
+solve (:mod:`gapflow_torch.ops.cholesky`); on an NVIDIA Hopper GPU they
+run through the CUDA kernels of :mod:`gapflow_torch.ops`
 (``csrc/*.cu``).
 
 Precision: float64 by default; set the environment variable

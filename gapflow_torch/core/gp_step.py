@@ -15,8 +15,8 @@ surrogates' padded buffers:
 The plain step is the specification.  Float32 CUDA states that the GP
 kernels cover take them instead (:mod:`gapflow_torch.ops.stencil_gp`):
 fully periodic edges the periodic kernel, uniform Dirichlet/Neumann edges
-the boundary kernel when the caller declares that it discards the
-pass-2 pressure (``need_p=False``).
+the boundary kernel (with its ghost-inclusive pass-2 pressure where the
+caller needs it).
 """
 
 import functools
@@ -139,9 +139,9 @@ def make_gp_step_core(cfg, active_dims, num_features, use_gp,
     returns a :class:`Stepper`;
     ``step.route(q)`` names the kernel a state takes (``"gp_step"``,
     ``"gp_step_bc"`` or None for the plain step).  ``need_p=False``
-    declares that the caller discards ``p_last``: it is None, periodic
-    domains take the kernel variant that writes no pressure, and uniform
-    D/N domains take the boundary kernel."""
+    declares that the caller discards ``p_last``: it is None, and the
+    kernels run their variants that write no pressure (the boundary
+    kernel's pressure, where written, covers the ghost ring)."""
     from ..ops.stencil import ghost_statics, interior_statics, with_ghosts
     from ..ops.stencil_gp import (gp_bc_kernel_supported,
                                   gp_kernel_supported, gp_step, gp_step_bc,
@@ -172,7 +172,7 @@ def make_gp_step_core(cfg, active_dims, num_features, use_gp,
             return None
         if gp_kernel_supported(cfg, active_dims, use_gp):
             return "gp_step"
-        if not need_p and gp_bc_kernel_supported(cfg, active_dims, use_gp):
+        if gp_bc_kernel_supported(cfg, active_dims, use_gp):
             return "gp_step_bc"
         return None
 
@@ -195,6 +195,8 @@ def make_gp_step_core(cfg, active_dims, num_features, use_gp,
             st = ghost_statics(topo, extra, q.dtype, q.device)
 
             def kstep(q_int, dt, i):
+                if need_p:
+                    return gp_step_bc(q_int, st, dt, cfg, ops, need_p=True)
                 return gp_step_bc(q_int, st, dt, cfg, ops), None
         return Stepper(_interior, kstep, lambda q_int: with_ghosts(q_int, cfg))
 

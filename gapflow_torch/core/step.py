@@ -2,6 +2,8 @@
 
 Builds step functions from a static :class:`SolverConfig`:
 
+- ``make_pass_fn``:    one MacCormack pass with closures supplied from
+                       outside (the per-step GP driver)
 - ``make_det_step``:   the full deterministic timestep: constitutive models,
                        two alternating one-sided passes, ghost fills,
                        temporal average, validity check with rollback,
@@ -179,8 +181,24 @@ def det_closures(cfg, q, topo, extra):
 
 
 # ---------------------------------------------------------------------------
-# MacCormack steps
+# MacCormack passes and steps
 # ---------------------------------------------------------------------------
+
+def make_pass_fn(cfg):
+    """One MacCormack pass with externally supplied closure fields (the
+    per-step GP driver re-predicts between passes).
+
+    ``pass_fn(q, topo, p, tau_bulk, s_lower, s_upper, dt, direction)``
+    advances q by one one-sided Euler update and refills the ghost cells.
+    """
+    def pass_fn(q, topo, p, tau_bulk, s_lower, s_upper, dt, direction):
+        fX, fY = predictor_corrector(q, p, tau_bulk, direction)
+        src = source(q, topo, tau_bulk, s_lower, s_upper)
+        q = q - dt * (true_div(fX, cfg.dx) + true_div(fY, cfg.dy) - src)
+        return apply_bcs(q, cfg)
+
+    return pass_fn
+
 
 def kinetic_energy(q):
     return torch.sum((q[1] ** 2 + q[2] ** 2) / q[0] / 2.)

@@ -132,13 +132,17 @@ def gp_predict_mean_var(params, X, cache, Xtest):
 
 
 def nlml(params, X, Y, yerr):
-    """Negative log marginal likelihood; multi-output Y sums over columns."""
+    """Negative log marginal likelihood; multi-output Y sums over columns.
+    Differentiable through :mod:`gapflow_torch.ops.cholesky` (its custom
+    backward passes; the blocked kernels where that module's gate allows
+    them)."""
+    from ..ops.cholesky import cholesky as chol, tril_solve
     K = kernel_gram(params, X)
     n = X.shape[0]
     yerr2 = torch.as_tensor(yerr, dtype=K.dtype, device=K.device) ** 2
-    L = cholesky(K + yerr2 * _eye_like(K))
+    L = chol(K + yerr2 * _eye_like(K))
     Y2 = Y if Y.ndim == 2 else Y[:, None]
-    a = torch.linalg.solve_triangular(L, Y2, upper=False)
+    a = tril_solve(L, Y2)
     m = Y2.shape[1]
     quad = 0.5 * torch.sum(a * a)
     logdet = m * torch.sum(torch.log(torch.diagonal(L)))

@@ -124,6 +124,14 @@ class WallStress(_FieldModel, GaussianProcessSurrogate):
     def variance(self):
         return self.__field_variance.p
 
+    @property
+    def lower(self):
+        return self.__field.p[:6]
+
+    @property
+    def upper(self):
+        return self.__field.p[6:]
+
     # -- GP data plumbing ---------------------------------------------------
     def _ycols(self, arr):
         n = self.last_fit_train_size
@@ -181,6 +189,10 @@ class BulkStress(_FieldModel):
     def __init__(self, fc, prop, geo, device, dtype):
         self.__field = fc.real_field("bulk_viscous_stress", (3,))
         super().__init__(fc, prop, geo, device, dtype)
+
+    @property
+    def stress(self):
+        return self.__field.p
 
     def update(self):
         self.__field.p[...] = stress_avg(*self._closure_args()).cpu().numpy()

@@ -27,7 +27,8 @@ BUILD_DIR = _PKG.parent / "build" / "gapflow_torch"
 # then stay at the ulp level even where float32 evaluation of a model is
 # ill-conditioned (the BWR polynomial, DH's r - 1).  The stencil kernels
 # are bound by memory bytes, the GP kernels by sqrt and exp, neither by
-# the separate multiply and add.
+# the separate multiply and add.  The Cholesky and solve kernels are bound
+# by multiply-adds, which this flag issues as two operations each.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC"]
 
@@ -72,6 +73,10 @@ _SIGNATURES = {
     # rdy2, dt, stream
     "gf_ehl_comp_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                          _F, _F, _F, _P],
+    # A, L, W, P, n, stream
+    "gf_cholesky": [_P, _P, _P, _P, _I, _P],
+    # L, B, X, W, T, n, m, stream
+    "gf_tril_solve": [_P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 

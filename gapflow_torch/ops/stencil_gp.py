@@ -12,7 +12,8 @@ kernels, in ``csrc/stencil_gp.cu`` (one template body):
   pressure;
 - :func:`gp_step_bc` (replaces ``_kernel_fused_gp_bc``): one step on
   uniform Dirichlet/Neumann edges, ghosts refilled between the passes,
-  returning the new state;
+  returning the new state (and, where asked, the ghost-inclusive pass-2
+  pressure);
 - :func:`gp_steps` (replaces ``_kernel_gp_vmem`` and
   ``_kernel_gp_hbm_loop``): ``n`` frozen-GP periodic steps, one launch per
   step from a loop in C, ping-ponging two buffers.
@@ -272,12 +273,13 @@ def gp_step_ref(q_int, statics, dt, cfg, ops, need_p=True):
     return out, (p if need_p else None)
 
 
-def gp_step_bc_ref(q_int, statics_g, dt, cfg, ops):
+def gp_step_bc_ref(q_int, statics_g, dt, cfg, ops, need_p=False):
     """Plain torch twin of :func:`gp_step_bc`: the ghosts of ``q_int``
     from the edge formulas, refilled by them between the passes."""
-    out, _ = _gp_step_layout(cfg, ops, with_ghosts(q_int, cfg), statics_g,
+    out, p = _gp_step_layout(cfg, ops, with_ghosts(q_int, cfg), statics_g,
                              dt, lambda q: apply_bcs(q, cfg))
-    return out[:, 1:-1, 1:-1].contiguous()
+    out = out[:, 1:-1, 1:-1].contiguous()
+    return (out, p) if need_p else out
 
 
 def gp_steps_ref(q_int, statics, dt, cfg, ops, n):
@@ -340,30 +342,34 @@ def gp_step(q_int, statics, dt, cfg, ops, need_p=True):
     return out, p
 
 
-def gp_step_bc(q_int, statics_g, dt, cfg, ops):
+def gp_step_bc(q_int, statics_g, dt, cfg, ops, need_p=False):
     """One GP-closed step on uniform D/N edges (periodic on at most one
     axis): the ghosts of ``q_int`` from the edge formulas, refilled from
     the predictor between the passes.  ``statics_g``: (8, nx+2, ny+2)
     from :func:`ops.stencil.ghost_statics`.  Returns the new interior
-    state.  CUDA tensors (float32) launch the kernel; CPU tensors run
-    :func:`gp_step_bc_ref`."""
+    state, with ``need_p`` also the pass-2 pressure (nx+2, ny+2), its
+    ghost ring evaluated on the refilled ghosts.  CUDA tensors (float32)
+    launch the kernel; CPU tensors run :func:`gp_step_bc_ref`."""
     if _on_cpu(q_int):
-        return gp_step_bc_ref(q_int, statics_g, dt, cfg, ops)
+        return gp_step_bc_ref(q_int, statics_g, dt, cfg, ops, need_p)
     if not gp_bc_kernel_supported(cfg, *_dims_use(ops)):
         raise ValueError("gp_step_bc does not cover this configuration "
                          "(see gp_bc_kernel_supported)")
     nx, ny = _check_gp(q_int, statics_g, True)
     args = _launch_args(q_int, cfg, ops)
     out = torch.empty_like(q_int)
+    p = (torch.empty((nx + 2, ny + 2), dtype=q_int.dtype,
+                     device=q_int.device) if need_p else None)
     lib = _build.load()
     with torch.cuda.device(q_int.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gf_gp_step(q_int.data_ptr(), statics_g.data_ptr(),
-                            out.data_ptr(), None, nx, ny, 1, *args,
-                            float(dt), stream)
+                            out.data_ptr(),
+                            None if p is None else p.data_ptr(), nx, ny, 1,
+                            *args, float(dt), stream)
     _build.check(lib, rc, "gf_gp_step (bc)")
     LAUNCHES["gp_step_bc"] += 1
-    return out
+    return (out, p) if need_p else out
 
 
 def gp_steps(q_int, statics, dt, cfg, ops, n):

@@ -26,14 +26,18 @@ device advances), with frozen surrogates through
 :meth:`_run_steps_ehl_pass2` (the host ``update()`` protocol on the
 device); float32 CUDA states take the GP kernels of
 :mod:`ops.stencil_gp`.  Adaptive dt rides the device loops except with
-active learning.  Non-silent deterministic elastic runs take the per-step
-host loop (``update()`` then ``topo.update()``).  :meth:`run_steps_ehl`
-is the fast EHL loop (end-of-step pressure; the EHL kernel K8 on a
-covered float32 CUDA state).
+active learning.  Non-silent GP and elastic runs, and silent GP runs with
+adaptive dt and active learning, take the per-step host loop
+(:meth:`update`, a frame every ``write_freq`` steps): a GP step is the
+host protocol pass by pass (:meth:`_update_gp`: the surrogates predict,
+retrain and acquire between the two MacCormack passes), or, when no
+surrogate may retrain or acquire and no output is due, one fused GP step
+(:meth:`_update_gp_fused`, the GP kernels on a covered float32 CUDA
+state).  :meth:`run_steps_ehl` is the fast EHL loop (end-of-step
+pressure; the EHL kernel K8 on a covered float32 CUDA state).
 
-Not ported yet (ROADMAP queue 1): non-silent GP runs and adaptive dt with
-active learning (the per-step host loop), a real MD engine.
-Configurations that need them raise ``NotImplementedError``.
+Not ported yet (ROADMAP queue 1): ``numerics: gp_fast_pred``, a real MD
+engine.  Configurations that need them raise ``NotImplementedError``.
 """
 
 import os
@@ -49,10 +53,12 @@ from .config import (read_yaml_input, read_yaml_string, write_yaml,
 from .core.al_chunked import (_next_capacity, _surrogate_specs, gp_state_of,
                               init_gp_states, new_stats, run_gp_al_chunked)
 from .core.ehl import make_ehl_loop, make_gp_ehl_loop
-from .core.gp_step import make_gp_adaptive_loop, make_gp_step_core
+from .core.gp_step import (make_gp_adaptive_loop, make_gp_step,
+                           make_gp_step_core)
 from .core.state import SimState
-from .core.step import (SolverConfig, make_det_step, make_run_loop,
-                        make_trajectory)
+from .core.step import (SolverConfig, apply_bcs, make_det_step,
+                        make_pass_fn, make_run_loop, make_trajectory,
+                        mc_directions)
 from .db import Database
 from .fields import FieldCollection
 from .md import Mock
@@ -118,38 +124,46 @@ class Problem:
         fc.register_real_field("pressure")
         fc.register_real_field("topography", (4,))
 
-        gp = gp or {}
+        gpx, gpy, gpz = self._select_gp_config(gp)
         self.has_gp_model = bool(gp)
         self.database = database
         self.al_stats = new_stats()
         model_args = (fc, prop, geo, self.device, self.dtype)
-        self.pressure = Pressure(*model_args, data=database,
-                                 gp=gp.get("press") if gp.get("press_gp")
-                                 else None)
+        self.pressure = Pressure(*model_args, data=database, gp=gpz)
         self.bulk_stress = BulkStress(*model_args)
-        shear = gp.get("shear") if gp.get("shear_gp") else None
         self.wall_stress_xz = WallStress(*model_args, direction="x",
-                                         data=database, gp=shear)
-        # a 1D problem has no yz surrogate (its jy and y-slopes vanish)
-        self.wall_stress_yz = WallStress(
-            *model_args, direction="y", data=database,
-            gp=None if grid["dim"] == 1 else shear)
+                                         data=database, gp=gpx)
+        self.wall_stress_yz = WallStress(*model_args, direction="y",
+                                         data=database, gp=gpy)
 
         self.topo = Topography(fc, grid, geo, prop, device=self.device,
                                dtype=self.dtype)
 
         self._solver_cfg = SolverConfig.from_dicts(grid, geo, prop, numerics)
         self._det_step = None
+        self._pass_fn = None
         self._route = None
+        #: fused steps of the per-step GP loop (:meth:`_update_gp_fused`)
+        self._fused_steps = 0
 
         # I/O
         if not options["silent"]:
             self.outdir = create_output_directory(options["output"],
                                                   options["use_tstamp"])
+            if database is not None:
+                database.set_training_path(os.path.join(self.outdir, "train"),
+                                           check_temporary=True)
+                database.output_path = self.outdir
+                options["output"] = self.outdir
+
             full_dict = {"version": __version__}
             for k, v in zip(["options", "grid", "numerics", "geo", "prop"],
                             [options, grid, numerics, geo, prop]):
                 full_dict[k] = v
+            if database is not None:
+                full_dict["gp"] = gp
+                full_dict["db"] = database.config
+                full_dict["md"] = database.md_config
             write_yaml(full_dict, os.path.join(self.outdir, "config.yml"))
 
             # topography output: once, or a frame per output when elastic
@@ -159,10 +173,16 @@ class Problem:
             if not self.topo.elastic:
                 self.topofile.close()
 
+            field_names = ["solution", "pressure", "wall_stress_xz",
+                           "wall_stress_yz"]
+            if gpx is not None:
+                field_names.append("wall_stress_xz_var")
+            if gpy is not None:
+                field_names.append("wall_stress_yz_var")
+            if gpz is not None:
+                field_names.append("pressure_var")
             self.file = NCWriter(os.path.join(self.outdir, "sol.nc"), fc,
-                                 field_names=["solution", "pressure",
-                                              "wall_stress_xz",
-                                              "wall_stress_yz"])
+                                 field_names=field_names)
 
     # ------------------------------------------------------------------
     # Constructors
@@ -185,19 +205,9 @@ class Problem:
 
         if input_dict.get("md"):
             refuse("a real MD engine (md: section)", "10")
-        if not (input_dict.get("gp") or input_dict.get("db")):
-            return
-        if not input_dict["options"]["silent"]:
-            refuse("a non-silent GP run (the per-step host loop)",
-                   "8, deferred")
-        gp = input_dict.get("gp") or {}
-        if input_dict["numerics"]["adaptive"] and any(
-                gp.get(f"{k}_gp") and gp[k]["active_learning"]
-                for k in ("press", "shear")):
-            refuse("adaptive dt with active learning (the per-step host "
-                   "loop)", "8, deferred")
-        if input_dict["numerics"].get("gp_fast_pred"):
-            refuse("numerics: gp_fast_pred", "8, deferred")
+        if (input_dict.get("gp") or input_dict.get("db")) \
+                and input_dict["numerics"].get("gp_fast_pred"):
+            refuse("numerics: gp_fast_pred", "8b")
 
     @classmethod
     def from_yaml(cls, fname, device="cuda", dtype=None):
@@ -311,7 +321,11 @@ class Problem:
         # granularity); GP and elastic problems the multiscale device
         # routes; everything else the plain step with the reference
         # per-step semantics.
-        if self.options["silent"]:
+        # Silent GP runs with adaptive dt and active learning keep the
+        # per-step host loop (the chunked AL advance carries a fixed dt).
+        per_step_al = (self.has_gp_model and self.numerics["adaptive"]
+                       and self._route_uses_al())
+        if self.options["silent"] and not per_step_al:
             self._tic = datetime.now()
             if self.has_gp_model or self.topo.elastic:
                 self._run_device_multiscale()
@@ -325,7 +339,7 @@ class Problem:
                 self._post_run()
             return
 
-        if self.topo.elastic:
+        if self.has_gp_model or self.topo.elastic:
             self._route = "host_loop"
             self._run_host_loop(keep_open)
             return
@@ -333,21 +347,25 @@ class Problem:
         self._run_chunked(keep_open)
 
     def _run_host_loop(self, keep_open=False):
-        """Non-silent elastic run: the per-step host loop (one
-        :meth:`update` with its ``topo.update()`` per step), a frame every
-        ``write_freq`` steps."""
-        print(61 * "-")
-        print(f"{'Step':6s} {'Timestep':10s} {'Time':10s} "
-              f"{'CFL':10s} {'Residual':10s}")
-        print(61 * "-")
-        self._refresh_det_fields()
-        self.write()
+        """The per-step host loop (non-silent GP or elastic runs, silent
+        GP runs with adaptive dt and active learning): one :meth:`update`
+        per step, a frame every ``write_freq`` steps unless silent."""
+        silent = self.options["silent"]
+        if not silent:
+            print(61 * "-")
+            print(f"{'Step':6s} {'Timestep':10s} {'Time':10s} "
+                  f"{'CFL':10s} {'Residual':10s}")
+            print(61 * "-")
+            # GP problems refreshed their fields in _pre_run
+            if not self.has_gp_model:
+                self._refresh_det_fields()
+            self.write(params=False)
 
         self._tic = datetime.now()
         while (not self.converged and self.step < self.max_it
                and not self._stop):
             self.update()
-            if self.step % self.options["write_freq"] == 0:
+            if self.step % self.options["write_freq"] == 0 and not silent:
                 self.write()
             handle_signals(self._receive_signal)
 
@@ -390,6 +408,9 @@ class Problem:
             m.init_database(self.grid["dim"])
         for m in self._surrogates():
             m.init()
+        if not self.options["silent"]:
+            for m in self._surrogates():
+                m.write()
 
         self.step = 0
         self.simtime = 0.
@@ -442,6 +463,13 @@ class Problem:
         if not self.options["silent"]:
             history_to_csv(os.path.join(self.outdir, "history.csv"),
                            self.history)
+            for model, tag in zip(self._surrogates(), ("zz", "xz", "yz")):
+                if model.is_gp_model:
+                    history_to_csv(os.path.join(self.outdir, f"gp_{tag}.csv"),
+                                   model.history)
+                    with open(os.path.join(self.outdir, f"gp_{tag}.txt"),
+                              "w") as fh:
+                        print(model.gp, file=fh)
 
     # ------------------------------------------------------------------
     # Single timestep
@@ -479,9 +507,13 @@ class Problem:
              if np.isfinite(r)], 5)
 
     def update(self):
-        """One deterministic MacCormack timestep (plain torch step); an
-        elastic problem then deforms from the pass-2 pressure (reference
-        order)."""
+        """One MacCormack timestep: the GP-driven step
+        (:meth:`_update_gp`) with GP surrogates, else the deterministic
+        step (plain torch step); an elastic problem then deforms from the
+        pass-2 pressure (reference order)."""
+        if self.has_gp_model:
+            self._update_gp()
+            return
         if self._det_step is None:
             self._det_step = make_det_step(self._solver_cfg)
 
@@ -517,6 +549,162 @@ class Problem:
             f[11] = s_up[5] / 2.
             f[oi + 6] = s_up[oi]
             f[9 if oi == 4 else 10] = 0.
+
+    # -- GP-driven step (the per-step host protocol) ---------------------
+
+    def _gp_models(self):
+        return [m for m in self._surrogates() if m.is_gp_model]
+
+    def _gp_fused_eligible(self, one_step_before_output):
+        """The whole GP step can run as one fused step when no model may
+        retrain or acquire this step and no variance output is due."""
+        if one_step_before_output:
+            return False
+        models = self._gp_models()
+        if not models:
+            return False
+        for m in models:
+            # predict() decrements _pause BEFORE its AL check, so AL can
+            # trigger this step whenever _pause - 1 < 0, the initial
+            # _pause == 0 included (hence <= 0, not < 0)
+            if m.use_active_learning and m._pause <= 0:
+                return False
+            if m.last_fit_train_size < m.database.size:
+                return False
+            if m.params is None:
+                return False
+        return True
+
+    def _gp_state(self):
+        """The surrogates' conditioned caches (float64, on the inference
+        device) in the ``core.gp_step`` layout, unpadded."""
+        f64 = dict(dtype=torch.float64, device=self.device)
+        state = {"Xscale": torch.as_tensor(self.database.X_scale, **f64)}
+        for key, model in zip(("z", "x", "y"), self._surrogates()):
+            if not model.is_gp_model:
+                continue
+            model._ensure_conditioned()
+            state[f"params_{key}"] = model._params_dev
+            state[f"Xfit_{key}"] = model._X_at_fit
+            state[f"alpha_{key}"] = model.cond_gp[1]
+            state[f"Yscale_{key}"] = torch.as_tensor(model.Yscale, **f64)
+        return state
+
+    def _update_gp_fused(self):
+        """One fused GP-closed step (:func:`core.gp_step.make_gp_step`):
+        the GP kernel on a covered float32 CUDA state (periodic edges K5,
+        uniform D/N edges K6, each with its pass-2 pressure), else the
+        plain GP step.  The surrogates' step and pause counters advance
+        as one predictor pass would advance them."""
+        models = self._surrogates()
+        dims = tuple(tuple(m.active_dims) if m.is_gp_model else None
+                     for m in models)
+        use = tuple(m.is_gp_model for m in models)
+        step_fn = make_gp_step(self._solver_cfg, dims,
+                               self.database.num_features, use)
+        q_new, p_last = step_fn(
+            self._tensor(self.q), self._tensor(self.topo.full),
+            self._tensor(self.fc.get_real_field("extra").p),
+            self._tensor(self.dt), self.step, self._gp_state())
+
+        q0 = self.q.copy()
+        self.q[...] = q_new.cpu().numpy()
+        self.fc.get_real_field("pressure").p[...] = p_last.cpu().numpy()
+        self._fused_steps += 1
+
+        for m in self._gp_models():
+            m._step += 1
+            m._pause = max(-1, m._pause - 1)
+
+        if self.q_is_valid:
+            self.topo.update()
+            self._post_update()
+        else:
+            self._finalize(q0)
+
+    def _update_gp(self):
+        """One GP-driven step by the host protocol: per MacCormack pass
+        the surrogates predict (the first pass as the predictor, which
+        retrains and acquires as needed; variances on the step before an
+        output), then the pass advances q; the temporal average follows,
+        and an invalid state rolls back.  Steps in which no surrogate may
+        retrain or acquire take :meth:`_update_gp_fused`."""
+        one_step_before_output = \
+            (self.step + 1) % self.options["write_freq"] == 0
+
+        if self._gp_fused_eligible(one_step_before_output):
+            self._update_gp_fused()
+            return
+
+        if self._pass_fn is None:
+            self._pass_fn = make_pass_fn(self._solver_cfg)
+
+        if self.numerics["MC_order"] == 0:
+            switch = (self.step % 2 == 0) * 2 - 1
+        else:
+            switch = self.numerics["MC_order"]
+
+        dt = self._tensor(self.dt)
+        topo = self._tensor(self.topo.full)
+        q0 = self.q.copy()
+
+        for i, d in enumerate(mc_directions(switch)):
+            for m in self._surrogates():
+                m.update(predictor=i == 0,
+                         compute_var=one_step_before_output)
+            self.bulk_stress.update()
+
+            q_new = self._pass_fn(
+                self._tensor(self.q), topo,
+                self._tensor(self.pressure.pressure),
+                self._tensor(self.bulk_stress.stress),
+                self._tensor(self.wall_stress_xz.lower
+                             + self.wall_stress_yz.lower),
+                self._tensor(self.wall_stress_xz.upper
+                             + self.wall_stress_yz.upper),
+                dt, d)
+            self.q[...] = q_new.cpu().numpy()
+
+        self.q[...] = (self.q + q0) / 2.
+
+        if self.q_is_valid:
+            self.topo.update()
+            self._post_update()
+        else:
+            self._finalize(q0)
+
+    def _post_update(self):
+        """Bookkeeping after a valid GP step: ghosts, residual, step and
+        time, adaptive dt from the new state."""
+        self._communicate_ghost_buffers()
+
+        self.residual = (abs(self.kinetic_energy - self.kinetic_energy_old)
+                         / self.kinetic_energy_old / self.cfl)
+        self.residual_buffer.append(self.residual)
+        self.kinetic_energy_old = self.kinetic_energy
+
+        self.step += 1
+        self.simtime += self.dt
+
+        if self.numerics["adaptive"]:
+            self.dt = self.numerics["CFL"] * self.dt_crit
+
+    def _finalize(self, q0):
+        """Roll back to ``q0`` after an invalid GP step and stop."""
+        if self.q_has_nan:
+            print("NaN detected.", end=" ")
+        elif self.q_has_negative_density:
+            print("Negative density detected.", end=" ")
+
+        self.q[...] = q0
+        self._refresh_det_fields()
+
+        print("Writing previous step and aborting simulation.")
+        self._stop = True
+
+    def _communicate_ghost_buffers(self):
+        self.q[...] = apply_bcs(self._tensor(self.q),
+                                self._solver_cfg).cpu().numpy()
 
     # ------------------------------------------------------------------
     # Whole-run paths
@@ -770,8 +958,8 @@ class Problem:
         if self.numerics["adaptive"]:
             raise RuntimeError(
                 "adaptive dt with active learning runs the per-step host "
-                "protocol loop (not ported, ROADMAP queue 1, item 8); the "
-                "chunked advance carries a fixed dt between acquisitions")
+                "protocol loop (plain run() routes it there); the chunked "
+                "advance carries a fixed dt between acquisitions")
         return run_gp_al_chunked(self, n, capacity=capacity,
                                  n_candidates=n_candidates)
 
@@ -991,7 +1179,7 @@ class Problem:
     # I/O
     # ------------------------------------------------------------------
 
-    def write(self, scalars=True, fields=True):
+    def write(self, scalars=True, fields=True, params=True):
         if scalars:
             print(f"{self.step:<6d} {self.dt:.4e} {self.simtime:.4e} "
                   f"{self.cfl:.4e} {self.residual:.4e}")
@@ -1005,12 +1193,25 @@ class Problem:
             self.file.append_frame().write()
             self._last_written_step = self.step
 
+        if params:
+            for m in self._surrogates():
+                m.write()
+
         if self.topo.elastic:
             self.topofile.append_frame().write()
 
     # ------------------------------------------------------------------
     # Helpers
     # ------------------------------------------------------------------
+
+    def _select_gp_config(self, gp):
+        """(xz, yz, pressure) sections of a sanitized ``gp:`` section, None
+        where that stress is analytic: a 1D problem has no yz surrogate
+        (its jy and y-slopes vanish)."""
+        gp = gp or {}
+        shear = gp.get("shear") if gp.get("shear_gp") else None
+        press = gp.get("press") if gp.get("press_gp") else None
+        return shear, None if self.grid["dim"] == 1 else shear, press
 
     def _initialize(self, rho0, U, V):
         self.__field.p[0] = rho0

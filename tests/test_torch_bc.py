@@ -83,7 +83,8 @@ def states(text, amp=0.01):
 
 
 def port_cfg(text):
-    return TProblem.from_string(text, device="cpu")._solver_cfg
+    return TProblem.from_string(text, device="cpu",
+                                dtype=torch.float64)._solver_cfg
 
 
 def inputs(ts, cfg, dtype):

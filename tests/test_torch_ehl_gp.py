@@ -152,7 +152,10 @@ def test_refusals(tmp_path):
         with pytest.raises(RuntimeError, match="elastic"):
             run()
     with pytest.warns(UserWarning, match="line contact"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Problem.from_string(lj_sim(tmp_path, al="True"), device="cpu")
-        # adaptive dt with frozen surrogates is ported
-        Problem.from_string(lj_sim(tmp_path, al="False"), device="cpu")
+        # adaptive dt with active learning (the per-step GP loop) and with
+        # frozen surrogates are ported
+        p = Problem.from_string(lj_sim(tmp_path, al="True"), device="cpu",
+                                dtype=F64)
+        assert p._route_uses_al() and p.numerics["adaptive"]
+        Problem.from_string(lj_sim(tmp_path, al="False"), device="cpu",
+                            dtype=F64)

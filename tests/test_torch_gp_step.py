@@ -78,7 +78,7 @@ def jax_inputs(jp, q_int, cfg, dtype):
 def twin(q, st, dt, cfg, ops, periodic):
     if periodic:
         return G.gp_step_ref(q, st, dt, cfg, ops)
-    return G.gp_step_bc_ref(q, st, dt, cfg, ops), None
+    return G.gp_step_bc_ref(q, st, dt, cfg, ops, need_p=True)
 
 
 @pytest.mark.parametrize("grid,gp,cap", [
@@ -101,9 +101,9 @@ def test_twin_and_plain_step_match_jax_f64(tmp_path, grid, gp, cap):
 
     qk, pk = twin(q, st, dt, cfg, ops, periodic)
     assert kernel_vs_plain_err(qk, jqr[:, 1:-1, 1:-1]) < 1e-10
-    if periodic:
-        pj = jpr[1:-1, 1:-1]
-        assert np.abs(pk.numpy() - pj).max() / np.abs(pj).max() < 1e-10
+    # the pass-2 pressure: interior (periodic), or with its ghost ring
+    pj = jpr[1:-1, 1:-1] if periodic else jpr
+    assert np.abs(pk.numpy() - pj).max() / np.abs(pj).max() < 1e-10
 
     plain = make_gp_step_core(cfg, dims, 7, use, allow_pallas=False)
     qr, pr = plain(with_ghosts(q, cfg), torch.as_tensor(p.topo.full),
@@ -204,10 +204,11 @@ def test_gates_routes_and_wrappers(tmp_path):
     with pytest.raises(ValueError, match="no kernel"):
         G.gp_step_bc(q.to("meta"), st, dt, cfg, ops)
 
-    # the plain step on the CPU, whatever the dtype; on a float32 CUDA
-    # state the boundary kernel only when the caller drops the pressure
-    step = make_gp_step_core(cfg, dims, 7, use, need_p=False)
-    assert step.route(torch.as_tensor(p.q, dtype=torch.float32)) is None
+    # the plain step on the CPU, whatever the dtype (on a float32 CUDA
+    # state the boundary kernel, with or without the pressure)
+    for need_p in (False, True):
+        step = make_gp_step_core(cfg, dims, 7, use, need_p=need_p)
+        assert step.route(torch.as_tensor(p.q, dtype=torch.float32)) is None
 
 
 def test_periodic_gate(tmp_path):

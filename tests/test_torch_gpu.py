@@ -5,6 +5,7 @@ compensated), K4 (mixed per-component edges, per step and through its
 loop) on ragged shapes (no multiple of the 8 x 32 tile), the plain
 whole-run kernels (K2p/Ke, Kv, K3p: equal bit for bit to K1 or K3
 launched once per step), K5/K6/K7 (the GP-closed steps) at 128 x 128,
+K10 (the blocked Cholesky and triangular solve, forward and backward),
 and runs that take the kernels.  The
 kernels have no CPU mode, so these tests skip without a CUDA device.
 This file imports no JAX; on a machine without it, run
@@ -313,9 +314,10 @@ def _gp_problem(tmp_path, grid="", gp="all", n=128, **kw):
 @pytest.mark.parametrize("gp,cap", [("pressure", 16), ("all", 16),
                                     ("all", 48)])
 def test_gp_kernels_match_twins(cuda, tmp_path, edges, gp, cap):
-    """K5 (periodic: state and pass-2 pressure) or K6 (D/N edges) against
-    its twin at 128 x 128, synthetic surrogates (48 points: a partial
-    tile of staged training points)."""
+    """K5 (periodic: state and pass-2 pressure) or K6 (D/N edges: state,
+    and state with its ghost-inclusive pass-2 pressure) against its twin
+    at 128 x 128, synthetic surrogates (48 points: a partial tile of
+    staged training points)."""
     p = _gp_problem(tmp_path, GP_GRIDS[edges], gp)
     cfg = p._solver_cfg
     periodic = edges == "periodic"
@@ -333,8 +335,42 @@ def test_gp_kernels_match_twins(cuda, tmp_path, edges, gp, cap):
     else:
         qk = G.gp_step_bc(q, st, dt, cfg, ops)
         qr = G.gp_step_bc_ref(q, st, dt, cfg, ops)
-        assert G.LAUNCHES["gp_step_bc"] == 1
+        # with the ghost-inclusive pass-2 pressure (the per-step GP
+        # loop's fused step)
+        qp, pk = G.gp_step_bc(q, st, dt, cfg, ops, need_p=True)
+        _, pr = G.gp_step_bc_ref(q, st, dt, cfg, ops, need_p=True)
+        assert torch.equal(qp, qk) and pk.shape == pr.shape
+        assert float((pk - pr).abs().max() / pr.abs().max()) < 2e-5
+        assert G.LAUNCHES["gp_step_bc"] == 2
     assert kernel_vs_plain_err(qk, qr) < 1e-5
+
+
+@pytest.mark.gpu
+def test_gp_step_bc_without_surrogates_matches_twin_and_plain_step(
+        cuda, tmp_path):
+    """K6 with no surrogate and its ghost-inclusive pass-2 pressure (the
+    EHL pass-2 route's step on D/N edges) against its twin and against
+    the plain step with analytic closures."""
+    from gapflow_torch.core.gp_step import make_gp_step_core
+    p = _gp_problem(tmp_path, GP_GRIDS["dn_x"], "all")
+    cfg = p._solver_cfg
+    q, st, dt, _, state = gp_kernel_inputs(p, 16, ghosted=True)
+    none = (None, None, None), (False, False, False)
+    gp_state = {"Xscale": state["Xscale"]}
+    ops = G.prep_gp_ops(gp_state, *none)
+    G.reset_launches()
+    qk, pk = G.gp_step_bc(q, st, dt, cfg, ops, need_p=True)
+    assert G.LAUNCHES["gp_step_bc"] == 1
+    qr, pr = G.gp_step_bc_ref(q, st, dt, cfg, ops, need_p=True)
+    assert kernel_vs_plain_err(qk, qr) < 1e-5
+    assert float((pk - pr).abs().max() / pr.abs().max()) < 2e-5
+    plain = make_gp_step_core(cfg, *none[:1], p.database.num_features,
+                              none[1], allow_pallas=False)
+    qp, pp = plain(S.with_ghosts(q, cfg), p._tensor(p.topo.full).float(),
+                   p._tensor(p.fc.get_real_field("extra").p).float(), dt, 0,
+                   gp_state)
+    assert kernel_vs_plain_err(qk, qp[:, 1:-1, 1:-1]) < 1e-4
+    assert float((pk - pp).abs().max() / pp.abs().max()) < 2e-5
 
 
 @pytest.mark.gpu
@@ -453,3 +489,99 @@ def test_run_takes_the_pass2_route_through_k5(cuda):
     assert G.LAUNCHES == {**G.LAUNCHES, "gp_step": 5}
     assert sum(G.LAUNCHES.values()) == 5 and sum(S.LAUNCHES.values()) == 0
     assert np.isfinite(p.q).all()
+
+
+# -- K10: blocked Cholesky and triangular solve -------------------------------
+
+def _spd(n, seed=0, dtype=torch.float32):
+    A = np.random.default_rng(seed).standard_normal((n, n))
+    A = A @ A.T / n + np.eye(n)
+    return torch.tensor(A, dtype=dtype, device="cuda")
+
+
+@pytest.fixture
+def linalg(cuda, monkeypatch):
+    from gapflow_torch.ops import cholesky as C
+    monkeypatch.setenv("GAPFLOW_PALLAS_LINALG", "1")
+    C.reset_launches()
+    return C
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [256, 384])
+def test_cholesky_kernel_matches_twin_and_library(linalg, n):
+    """Bit for bit against the twin (the same operations in the same
+    order); against the library rtol 2e-4, atol 5e-5, the reference's
+    tolerance for its kernel against XLA (tests/test_cholesky.py)."""
+    A = _spd(n)
+    L = linalg.cholesky(A)
+    assert linalg.LAUNCHES["cholesky"] == 1
+    assert torch.equal(L, linalg._chol_ref(A))
+    torch.testing.assert_close(L, torch.linalg.cholesky(A), rtol=2e-4,
+                               atol=5e-5)
+    assert torch.equal(L, torch.tril(L))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [(256, 128), (384, 256)])
+def test_tril_solve_kernel_matches_twin_and_library(linalg, n, m):
+    L = torch.linalg.cholesky(_spd(n))
+    B = torch.tensor(np.random.default_rng(1).standard_normal((n, m)),
+                     dtype=torch.float32, device="cuda")
+    X = linalg.tril_solve(L, B)
+    assert linalg.LAUNCHES["tril_solve"] == 1
+    assert torch.equal(X, linalg._trsm_ref(L, B))
+    torch.testing.assert_close(
+        X, torch.linalg.solve_triangular(L, B, upper=False), rtol=2e-4,
+        atol=5e-5)
+
+
+@pytest.mark.gpu
+def test_cholesky_gradient_launches_the_solve_kernel(linalg):
+    """The backward pass's two upper solves run the solve kernel on
+    reversed operands; the symmetrised gradient against autograd through
+    torch.linalg.cholesky within 1e-3 of its largest entry (float32)."""
+    A = _spd(256, seed=2)
+
+    def grad(chol):
+        X = A.clone().requires_grad_(True)
+        torch.sum(torch.sin(chol(X))).backward()
+        return X.grad + X.grad.T
+
+    g = grad(linalg.cholesky)
+    assert linalg.LAUNCHES == {"cholesky": 1, "tril_solve": 2}
+    ref = grad(torch.linalg.cholesky)
+    assert float((g - ref).abs().max()) < 1e-3 * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+def test_linalg_gate_routes_to_the_library(linalg, monkeypatch):
+    A = _spd(256)
+    linalg.cholesky(A.double())
+    linalg.cholesky(A[:200, :200])
+    monkeypatch.setenv("GAPFLOW_PALLAS_LINALG", "0")
+    linalg.cholesky(A)
+    assert linalg.LAUNCHES["cholesky"] == 0
+    with pytest.raises(ValueError):
+        linalg.cholesky_kernel(A[:200, :200])
+
+
+@pytest.mark.gpu
+def test_per_step_gp_loop_fuses_through_the_kernels(cuda, tmp_path):
+    """A non-silent GP run with frozen surrogates on D/N edges (the
+    per-step loop): every step not followed by an output is one K6
+    launch with its pressure."""
+    text = gp_yaml(64, 64, max_it=6, grid=BC_CASES["dn_x"][0],
+                   out=str(tmp_path / "o"), dtool_path=str(tmp_path / "tr"),
+                   gp=GP_CASES["all"].replace("max_steps: 2",
+                                              "max_steps: 2, "
+                                              "active_learning: False"))
+    text = text.replace("write_freq: 1000000, silent: True",
+                        "write_freq: 3, silent: False")
+    p = Problem.from_string(text, device="cuda", dtype=torch.float32)
+    G.reset_launches()
+    p.run()
+    assert p._route == "host_loop" and p.step == 6
+    assert p._fused_steps == 4 and G.LAUNCHES["gp_step_bc"] == 4
+    assert np.isfinite(p.q).all()
+    assert np.isfinite(p.pressure.pressure).all()

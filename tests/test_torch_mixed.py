@@ -64,7 +64,8 @@ def states(text):
     ts = SimState.from_numpy({k: np.asarray(v)
                               for k, v in js._asdict().items()},
                              "cpu", torch.float64)
-    cfg = TProblem.from_string(text, device="cpu")._solver_cfg
+    cfg = TProblem.from_string(text, device="cpu",
+                               dtype=torch.float64)._solver_cfg
     return jp, js, ts, cfg
 
 
@@ -135,7 +136,8 @@ def test_mixed_gate_and_routing():
     """(f) Mixed configurations go to make_mixed_loop, at any width; the
     gate refuses thinning, MC_order 0 and colliding band lines; uniform
     edges stay with the uniform kernels."""
-    cfg = TProblem.from_string(yaml("x_mixed"), device="cpu")._solver_cfg
+    cfg = TProblem.from_string(yaml("x_mixed"), device="cpu",
+                               dtype=torch.float64)._solver_cfg
     assert M.mixed_supported(cfg, NY, NX)
     assert M.mixed_supported(cfg, 127, NX)        # no width alignment
     assert not M.mixed_supported(cfg, NY, 4)      # band lines collide
@@ -150,7 +152,8 @@ def test_mixed_gate_and_routing():
         S.make_pallas_loop(cfg, NX, NY, compensated=True, with_lo=True)
 
     uniform = TProblem.from_string(
-        journal_yaml(NX, NY, BC_CASES["dn_x"][0]), device="cpu")._solver_cfg
+        journal_yaml(NX, NY, BC_CASES["dn_x"][0]), device="cpu",
+        dtype=torch.float64)._solver_cfg
     assert not M.mixed_supported(uniform, NY, NX)
     assert S.pallas_supported(uniform)
 

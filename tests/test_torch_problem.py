@@ -37,7 +37,8 @@ properties: {shear: 0.0794, bulk: 0., EOS: DH, P0: 101325.,
 
 
 def _mc_problem(order):
-    p = Problem.from_string(_MC.format(order=order), device="cpu")
+    p = Problem.from_string(_MC.format(order=order), device="cpu",
+                            dtype=torch.float64)
     p._pre_run()
     return p
 
@@ -80,7 +81,7 @@ numerics: {CFL: 0.5, adaptive: 0, tol: 1e-8, dt: 5e-11, max_it: 10}
 properties: {shear: 0.0794, bulk: 0., EOS: DH, P0: 101325.,
              rho0: 877.7007, C1: 3.5e10, C2: 1.23}
 """
-    p = Problem.from_string(sim, device="cpu")
+    p = Problem.from_string(sim, device="cpu", dtype=torch.float64)
     qn = p.q.copy()
     out = apply_bcs(torch.as_tensor(qn), p._solver_cfg).numpy()
     np.testing.assert_allclose(out[0, 0, 1:-1], 2. * 850. - qn[0, 1, 1:-1])
@@ -138,23 +139,30 @@ def test_cuda_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
-        Problem.from_string(_RUN)
+        Problem.from_string(_RUN, dtype=torch.float64)
 
 
 @pytest.mark.parametrize("name", [
     "journal_1d_dowson-higginson_gp.yaml", "parabolic_1d_elastic.yaml"])
-def test_unported_features_raise(name):
-    """A non-silent GP configuration raises, naming its ROADMAP item.  The
-    elastic configuration, which raised the same way until the elastic
-    slice was ported, now builds a Problem with its half-space (made
-    silent here, so that it writes no output)."""
+def test_unported_features_raise(name, tmp_path):
+    """Two configurations that raised, naming their ROADMAP item, until
+    their slices were ported now build a Problem: the non-silent GP
+    configuration with its surrogates and its training datasets under its
+    output directory (here under tmp_path), and the elastic one with its
+    half-space (made silent here, so that it writes no output).  What
+    still raises is in tests/test_torch_gp_host.py."""
     path = ROOT / "examples" / "config" / name
     if name == "parabolic_1d_elastic.yaml":
         text = path.read_text().replace("use_tstamp: True",
                                         "use_tstamp: True\n    silent: True")
-        p = Problem.from_string(text, device="cpu")
+        p = Problem.from_string(text, device="cpu", dtype=torch.float64)
         assert p.topo.elastic
         assert p.topo.ElasticDeformation.periodicity == "full"
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Problem.from_yaml(str(path), device="cpu")
+    text = path.read_text().replace("output: data/journal_gp",
+                                    f"output: {tmp_path / 'o'}")
+    p = Problem.from_string(text, device="cpu", dtype=torch.float64)
+    assert p.has_gp_model and not p.options["silent"]
+    assert p.pressure.is_gp_model and p.wall_stress_xz.is_gp_model
+    assert not p.wall_stress_yz.is_gp_model        # a 1D problem
+    assert p.database.training_path.startswith(str(tmp_path))

@@ -59,7 +59,8 @@ def states():
 
 
 def _port_cfg():
-    return TProblem.from_string(SIM, device="cpu")._solver_cfg
+    return TProblem.from_string(SIM, device="cpu",
+                                dtype=torch.float64)._solver_cfg
 
 
 def test_state_round_trip(states):
