@@ -28,7 +28,12 @@ on FFT grids of 1024², 1026², 2050² and 2052² (3r).  The plain
 K3 launched once per step (2i), then drive bench.py's FV throughput run
 (3o: the whole run in one launch at 512², temporally blocked sweeps at
 1024² and 2048², each beside K1 once per step) and the plain boundary
-paths (3p).  Any failed
+paths (3p).  The shard kernel K9 is held bit for bit against its twin
+on every edge-flag pattern of a 2 x 2 and a 1 x 4 mesh (2s);
+``Problem.run_steps_sharded`` drives the four-edge D/N journal at 1024²
+on 1 x 1, 2 x 2 and 2 x 4 meshes of cuda:0 shards and the periodic
+journal on 2 x 2, each bit for bit against the serial route, and the
+sharded EHL loop at 512², held against its float64 route (3s).  Any failed
 phase raises, which exits non-zero before the result line.
 Without CUDA, or without the package beside it, the script fails the
 same way.
@@ -2191,6 +2196,336 @@ def gp_kernel_ms(p, reps=20):
     return time_ms(fn, reps)
 
 
+# -- the sharded path (K9) ---------------------------------------------------
+
+SHARD_STEPS = 200            # phase 3s: steps of each sharded run
+SHARD_MESHES = ((1, 1), (2, 2), (2, 4))
+SHARD_CASE = "dn_all_asymmetric"   # D/N on four edges: every edge flag
+SHARD_EHL_N = 512            # phase 3s: the sharded EHL loop at 512²
+SHARD_EHL_EVERY = 4
+# phase 3s: the sharded EHL loop's float32 distance from the same route in
+# float64 (its twins on the card) may be at most this many times the
+# serial float32 EHL loop's (plain step) distance from its float64 run
+SHARD_EHL_FACTOR = 2.
+SHARD_SPLIT_STEPS = 50       # phase 3s: the split of a 2 x 2 step
+
+
+def cuda_mesh(shape):
+    """A mesh of shape[0] x shape[1] shards, all on cuda:0."""
+    from gapflow_torch.parallel import grid_mesh
+    return grid_mesh(["cuda:0"] * (shape[0] * shape[1]), shape)
+
+
+def perturbed(p):
+    """``p`` from the perturbed state of phase 2 (amplitude 0.01, seed 0)
+    rounded to float32, its ghosts refilled: a float64 run starts from the
+    float32 runs' state, so that its distance to them is their
+    accumulated rounding only."""
+    from gapflow_torch.core.step import apply_bcs
+    from gapflow_torch.validate import perturbed_q
+    p._pre_run()
+    q = torch.as_tensor(perturbed_q(p.q), dtype=torch.float32)
+    p.q[...] = apply_bcs(q, p._solver_cfg).numpy()
+    return p
+
+
+def shard_problem(n, case=None):
+    """The perturbed n² journal of BC_CASES[case] (periodic without a
+    case), dt 2e-11."""
+    from gapflow_torch.validate import BC_CASES
+    return perturbed(journal(n, n, *(BC_CASES[case] if case else ()),
+                             dt=2e-11))
+
+
+def shard_blocks(p, shape):
+    """The 2-deep halo blocks, statics and edge flags of each shard of
+    ``p``'s state on a cuda:0 mesh of ``shape`` (float32), as the
+    sharded loop hands them to K9."""
+    from gapflow_torch.models.closures_opt import precompute_statics
+    from gapflow_torch.ops.stencil import _fully_periodic
+    from gapflow_torch.parallel.halo import (halo_blocks,
+                                             shard_problem_arrays,
+                                             split_blocks)
+    from gapflow_torch.parallel.pallas_halo import (pad_blocks2,
+                                                    pad_blocks2_bc,
+                                                    shard_flags)
+    cfg = p._solver_cfg
+    mesh = cuda_mesh(shape)
+    per = (all(cfg.bc_edge(0)["P"]), all(cfg.bc_edge(2)["P"]))
+
+    def blocks(a):
+        lay = (pad_blocks2(a, *shape) if _fully_periodic(cfg)
+               else pad_blocks2_bc(a, *shape, *per))
+        return split_blocks(lay, mesh, torch.float32)
+
+    q, _, _ = shard_problem_arrays(p, mesh, torch.float32)
+    hb = halo_blocks(q, mesh, 2, cfg)
+    t2, e2 = blocks(p.topo.full), blocks(p.fc.get_real_field("extra").p)
+    out = []
+    for i in range(shape[0]):
+        for j in range(shape[1]):
+            out.append((hb[i][j], precompute_statics(t2[i][j][:3], e2[i][j])
+                        .contiguous(), shard_flags(cfg, mesh, i, j)))
+    return out
+
+
+def check_equal(label, out, ref):
+    """``out`` equals ``ref`` bit for bit, else the difference is printed
+    and the phase fails."""
+    out, ref = torch.as_tensor(out), torch.as_tensor(ref)
+    if torch.equal(out, ref):
+        print(f"  {label}: equal bit for bit")
+        return
+    err, abs_err = errors(label, out, ref)
+    raise RuntimeError(f"{label}: NOT equal bit for bit: max scaled diff "
+                       f"{err:.3e}, max abs diff {abs_err:.3e}")
+
+
+def shard_kernel_checks():
+    """Phase 2s: K9 against its twin on one N_CHECK² block (the perturbed
+    four-edge D/N journal with its serial ghosts as the halo), for every
+    flag pattern of a 2 x 2 and a 1 x 4 mesh and for zero flags: equal bit
+    for bit.  Returns the max abs error (0)."""
+    from gapflow_torch.ops import stencil as S
+    from gapflow_torch.parallel.pallas_halo import shard_flags
+    p = shard_problem(N_CHECK, SHARD_CASE)
+    cfg = p._solver_cfg
+    q, st, _ = shard_blocks(p, (1, 1))[0]
+    patterns = {(0, 0, 0, 0)}
+    for shape in ((2, 2), (1, 4)):
+        mesh = cuda_mesh(shape)
+        patterns |= {shard_flags(cfg, mesh, i, j) for i in range(shape[0])
+                     for j in range(shape[1])}
+    for flags in sorted(patterns):
+        check_equal(f"K9 flags (xe, xw, yn, ys) = {flags} vs twin",
+                    S.shard_step(q, st, p.dt, cfg, flags),
+                    S.shard_step_ref(q, st, p.dt, cfg, flags))
+    return 0.
+
+
+def drive_sharded(label, p, n, shape, **kw):
+    """run_steps_sharded(n) on a cuda:0 mesh of ``shape`` with the launch
+    counts set to 0 just before it: K9 once per shard and step.  Returns
+    (launches, wall s)."""
+    reset_all()
+    t0 = time.perf_counter()
+    p.run_steps_sharded(n, cuda_mesh(shape), **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lau = launched()
+    print(f"  {label} on {shape[0]} x {shape[1]} cuda:0 shards: launches "
+          f"{lau}, {wall / n * 1e3:.4f} ms per step")
+    expect_launches(label, {"shard_step": n * shape[0] * shape[1]})
+    check_state(label, p, n)
+    return lau["shard_step"], wall
+
+
+def timed_run(label, run, n, want):
+    """``run()``, ``n`` steps, with the launch counts set to 0 just before
+    it and checked against ``want`` just after; returns its result."""
+    reset_all()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"  {label}: launches {launched()}, {wall / n * 1e3:.4f} ms per "
+          f"step")
+    expect_launches(label, want)
+    return out
+
+
+def device_times(fn, reps):
+    """torch.profiler's device time per call of ``fn`` over ``reps``
+    calls, by kernel (and copy) name, in ms; empty where the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        dev = getattr(e, "device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "cuda_time_total", 0.)
+        if dev and not e.key.startswith("aten::"):
+            out[e.key] = dev / 1e3 / reps
+    return out
+
+
+def k9_ms(times):
+    return sum(v for k, v in times.items() if "shard_step_kernel" in k)
+
+
+def shard_split(p, n_steps=SHARD_SPLIT_STEPS):
+    """The time of a 2 x 2 sharded step on ``p``'s state: the host
+    clock's step, and torch.profiler's device time of the K9 launches and
+    of the other kernels (the exchange copies and the statics, computed
+    once per call); the rest is the device's idle time, the host's
+    launches."""
+    from gapflow_torch.parallel.halo import (shard_problem_arrays,
+                                             split_blocks)
+    from gapflow_torch.parallel.pallas_halo import (
+        make_sharded_bc_pallas_loop, pad_blocks2_bc)
+    mesh = cuda_mesh((2, 2))
+    n = p.grid["Nx"]
+    loop = make_sharded_bc_pallas_loop(p._solver_cfg, mesh, n, n)
+    q, _, _ = shard_problem_arrays(p, mesh, torch.float32)
+    t2, e2 = (split_blocks(pad_blocks2_bc(a, 2, 2, False, False), mesh,
+                           torch.float32)
+              for a in (p.topo.full, p.fc.get_real_field("extra").p))
+    loop(q, t2, e2, p.dt, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop(q, t2, e2, p.dt, n_steps)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    dev = device_times(lambda: loop(q, t2, e2, p.dt, n_steps), 1)
+    if not dev:
+        print(f"  2 x 2 step at {n}²: {step_ms:.4f} ms; device times not "
+              f"measured (the profiler recorded none)")
+        return
+    k9 = k9_ms(dev) / n_steps
+    other = sum(dev.values()) / n_steps - k9
+    top = sorted(((v, k) for k, v in dev.items()
+                  if "shard_step_kernel" not in k), reverse=True)[:3]
+    print(f"  2 x 2 step at {n}², {n_steps} steps: {step_ms:.4f} ms = K9 "
+          f"{k9:.4f} ms (4 launches, device time by torch.profiler) + other "
+          f"kernels {other:.4f} ms (exchange copies, statics; "
+          + ", ".join(f"{k[:36]} {v / n_steps:.4f}" for v, k in top)
+          + f") + device idle {step_ms - k9 - other:.4f} ms (host "
+          f"launches); K9 share {k9 / step_ms:.3f}, idle share "
+          f"{(step_ms - k9 - other) / step_ms:.3f}")
+
+
+def sharded_ehl_check():
+    """Phase 3s, the sharded EHL loop: run_steps_sharded on the perturbed
+    SHARD_EHL_N² EHL journal, 2 x 2 cuda:0 shards, deform_every
+    SHARD_EHL_EVERY (K9 with zero flags once per shard and step), held
+    route against route: its distance from the same route in float64
+    (its twins on the card) at most SHARD_EHL_FACTOR times the serial
+    float32 EHL loop's (plain step) distance from its float64 run.
+    All four start from the perturbed state of phase 2.  Returns K9's
+    launches."""
+    from gapflow_torch.core.ehl import make_ehl_loop
+    from gapflow_torch.ops import stencil as S
+    from gapflow_torch.parallel.ehl import make_sharded_ehl_loop
+    from gapflow_torch.parallel.halo import gather, shard_problem_arrays
+    from gapflow_torch.validate import kernel_vs_plain_err
+    n, steps, K = SHARD_EHL_N, SHARD_STEPS, SHARD_EHL_EVERY
+    p = perturbed(ehl_journal(n))
+    lau, wall = drive_sharded(f"sharded EHL loop {n}², deform_every {K}",
+                              p, steps, (2, 2), deform_every=K)
+    runs = {"sharded f32": torch.as_tensor(p.q[:, 1:-1, 1:-1])}
+    p64 = perturbed(ehl_journal(n, dtype=torch.float64))
+    mesh = cuda_mesh((2, 2))
+    loop = make_sharded_ehl_loop(p64, mesh, K, use_pallas=True,
+                                 step_fn=S.shard_step_ref)
+    q, _, _ = shard_problem_arrays(p64, mesh)
+    u = p64.topo.ElasticDeformation.u_prev
+    runs["sharded f64"] = gather(timed_run(
+        "sharded EHL loop, float64 on the twins",
+        lambda: loop(q, u, p64.dt, steps), steps, {})[0])
+    for label, dtype in (("serial f32", torch.float32),
+                         ("serial f64", torch.float64)):
+        ps = perturbed(ehl_journal(n, dtype=dtype))
+        sloop = make_ehl_loop(ps, use_pallas=False, dtype=dtype,
+                              deform_every=K)
+        q_s = timed_run(f"serial EHL loop (plain step), {label[-3:]}",
+                        lambda: sloop(ps._tensor(ps.q),
+                                      ps.topo.ElasticDeformation.u_prev,
+                                      ps.dt, steps)[0], steps, {})
+        runs[label] = q_s[:, 1:-1, 1:-1]
+    runs = {k: v.to("cpu", torch.float64) for k, v in runs.items()}
+    d_sh = kernel_vs_plain_err(runs["sharded f32"], runs["sharded f64"])
+    d_se = kernel_vs_plain_err(runs["serial f32"], runs["serial f64"])
+    print(f"  sharded f32 (K9) vs its float64 twin route {d_sh:.3e} scaled; "
+          f"serial f32 plain step vs float64 {d_se:.3e} (limit "
+          f"{SHARD_EHL_FACTOR:g} x); sharded vs serial: float64 "
+          f"{kernel_vs_plain_err(runs['sharded f64'], runs['serial f64']):.3e}"
+          f" (the seam convention), float32 "
+          f"{kernel_vs_plain_err(runs['sharded f32'], runs['serial f32']):.3e}"
+          f"; max deformation {np.abs(p.topo.deformation).max():.4e} m")
+    if not (np.isfinite(d_sh) and d_sh <= SHARD_EHL_FACTOR * d_se):
+        raise RuntimeError(f"3s EHL: sharded f32 {d_sh} from its float64 "
+                           f"route, serial f32 {d_se} from its own")
+    return lau
+
+
+def sharded_phase():
+    """Phase 3s: Problem.run_steps_sharded on cuda:0 meshes.  The
+    perturbed four-edge D/N journal at N², SHARD_STEPS steps, on each of
+    SHARD_MESHES, equal bit for bit to the serial plain boundary route
+    (K3p sweeps); the periodic journal on 2 x 2, equal bit for bit to K1
+    once per step; the split of a 2 x 2 step; the sharded EHL loop.
+    Returns (K9's launches, the 2 x 2 D/N Problem)."""
+    from gapflow_torch.parallel.pallas_halo import ici_bytes_per_step
+    n, steps = N, SHARD_STEPS
+    total = 0
+    ref = shard_problem(n, SHARD_CASE)
+    timed_run(f"serial plain boundary route (K3p), {n}²",
+              lambda: ref.run_steps_fast(steps, compensated=False), steps,
+              {"plain_steps_bc": steps // 4})
+    for shape in SHARD_MESHES:
+        p = shard_problem(n, SHARD_CASE)
+        lau, _ = drive_sharded(f"D/N journal {n}²", p, steps, shape)
+        total += lau
+        check_equal(f"{shape[0]} x {shape[1]} vs serial", p.q, ref.q)
+        if shape == (2, 2):
+            p22 = p
+    ref = shard_problem(n)
+    timed_run(f"periodic journal {n}², K1 once per step",
+              lambda: k1_run_steps(ref, steps), steps, {"fused_step": steps})
+    p = shard_problem(n)
+    lau, _ = drive_sharded(f"periodic journal {n}²", p, steps, (2, 2))
+    total += lau
+    check_equal("2 x 2 vs K1 once per step", p.q, ref.q)
+    shard_split(p22)
+    for shape in ((2, 2), (2, 4)):
+        print(f"  halo copies per shard and step at {n}² on {shape[0]} x "
+              f"{shape[1]}: {ici_bytes_per_step(n, n, *shape):.0f} B "
+              f"(2-deep, every step), the queued blocked form "
+              f"{ici_bytes_per_step(n, n, *shape, mode='blocked'):.0f} B "
+              f"(8-deep per 4 steps)")
+    total += sharded_ehl_check()
+    return total, p22
+
+
+def shard_kernel_times(p, reps=100, plain_reps=5):
+    """Phase 5: one 2 x 2 step of K9 on the 3s D/N state at N² (four
+    launches on the shards' halo blocks), held against its twin, timed
+    beside it and its bound.  Returns (max abs err, (ms, twin ms),
+    bound)."""
+    from gapflow_torch.ops import stencil as S
+    blocks = shard_blocks(p, (2, 2))
+    cfg, dt = p._solver_cfg, p.dt
+    err = 0.
+    outs = []
+    for q, st, flags in blocks:
+        out = S.shard_step(q, st, dt, cfg, flags)
+        check_equal(f"K9 flags {flags} (phase 5) vs twin", out,
+                    S.shard_step_ref(q, st, dt, cfg, flags))
+        outs.append(out)
+
+    def run(fn):
+        return lambda: [fn(q, st, dt, cfg, f) for q, st, f in blocks]
+
+    # the wrapper's host time per launch exceeds a 512² launch's device
+    # time, so events around a run of launches time the host; K9's own
+    # time is the profiler's device time (events where it records none)
+    ev = time_ms(run(S.shard_step), reps)
+    dev = k9_ms(device_times(run(S.shard_step), 20))
+    print(f"  K9, one 2 x 2 step: device time {dev:.4f} ms (torch.profiler, "
+          f"4 launches), events around the launches {ev:.4f} ms (the "
+          f"wrapper's host time)")
+    times = (dev or ev, time_ms(run(S.shard_step_ref), plain_reps))
+    ins = [t for q, st, _ in blocks for t in (q, st)]
+    return err, times, bound(ins, outs, N * N)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -2212,6 +2547,13 @@ def main():
     _build.load()
     print(f"phase 1: kernels built and loaded in "
           f"{time.perf_counter() - t0:.2f} s ({_build.library_path().name})")
+    log = _build.library_path().with_suffix(".log")
+    if log.is_file():       # absent where the library was built earlier
+        shard = log.read_text().split("== stencil_shard.cu")[-1]
+        print("  ptxas, K9 (stencil_shard.cu): " + "; ".join(
+            line.split("ptxas info    : ")[-1].strip()
+            for line in shard.splitlines()
+            if "stack frame" in line or "Used" in line))
 
     # -- phase 2: kernels vs plain twins, float32 on the card --------------
     print("phase 2: kernel vs plain twin (256 x 256 perturbed journal)")
@@ -2350,6 +2692,12 @@ def main():
           f"step and vs their twins ({N_CHECK} x {N_CHECK} journal, "
           f"BC_CASES, amplitude 0.01)")
     plain_kernel_checks(err)
+
+    print(f"phase 2s: K9 vs plain twin ({N_CHECK} x {N_CHECK} perturbed "
+          f"four-edge D/N journal as one shard block with its serial "
+          f"ghosts, the edge flags of a 2 x 2 and a 1 x 4 mesh and zero "
+          f"flags)")
+    err["shard_step"] = shard_kernel_checks()
 
     print(f"phase 2k: K10, cholesky and tril_solve with "
           f"GAPFLOW_PALLAS_LINALG=1 at n {', '.join(map(str, K10_SIZES))} "
@@ -2575,6 +2923,15 @@ def main():
           f"N x N interiors for N in {HALFSPACE_SIZES}, both fft_grid "
           f"conventions")
     halfspace_check()
+    print(f"phase 3s: Problem.run_steps_sharded on meshes of cuda:0 shards "
+          f"(K9 once per shard and step), {SHARD_STEPS} steps: the "
+          f"perturbed four-edge D/N journal at {N}² on "
+          f"{', '.join(f'{a} x {b}' for a, b in SHARD_MESHES)} against the "
+          f"serial plain boundary route, the periodic journal on 2 x 2 "
+          f"against K1, the sharded EHL loop at {SHARD_EHL_N}²")
+    t0 = time.perf_counter()
+    launches["shard_step"], p_shard = sharded_phase()
+    print(f"  phase 3s took {time.perf_counter() - t0:.1f} s")
 
     # -- phase 4: physics ---------------------------------------------------
     from gapflow_torch.validate import sommerfeld_l2
@@ -2620,6 +2977,10 @@ def main():
     bounds["ehl_step"] = bound((q, h, ls, px, py), (q,), n * n, ops)
     bounds["ehl_comp_step"] = bound((q, lo, h, ls, px, py), (q, lo), n * n,
                                     ops)
+    print(f"phase 5: K9 on the 2 x 2 shards of 3s's final D/N state, "
+          f"{n} x {n} (one step: four launches)")
+    errs["shard_step"], times["shard_step"], bounds["shard_step"] = \
+        shard_kernel_times(p_shard)
     for k, e in errs.items():
         err[k] = max(err[k], e)
     for k, (ms, plain) in times.items():
@@ -2643,6 +3004,7 @@ def main():
                     for k in ("gp_step", "gp_step_bc", "gp_steps")})
     sources.update({k: "gapflow_torch/csrc/stencil_ehl.cu"
                     for k in ("ehl_step", "ehl_comp_step")})
+    sources["shard_step"] = "gapflow_torch/csrc/stencil_shard.cu"
     replaces = {"fused_step": "gapflow_tpu/ops/stencil.py:897",
                 "comp_step": "gapflow_tpu/ops/stencil.py:681",
                 "fused_step_bc": "gapflow_tpu/ops/stencil.py:370",
@@ -2656,7 +3018,8 @@ def main():
                 "plain_steps": "gapflow_tpu/ops/stencil.py:681",
                 "plain_steps_rem": "gapflow_tpu/ops/stencil.py:1306",
                 "plain_run": "gapflow_tpu/ops/stencil.py:1364",
-                "plain_steps_bc": "gapflow_tpu/ops/stencil.py:759"}
+                "plain_steps_bc": "gapflow_tpu/ops/stencil.py:759",
+                "shard_step": "gapflow_tpu/ops/stencil.py:457"}
     # no single PyTorch call computes a MacCormack step: library_ms null;
     # K10's are torch.linalg's, at n 2048 (the solve with m 2048)
     k10_launches, k10_err, k10_times, k10_bounds, library = k10

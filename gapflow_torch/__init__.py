@@ -12,10 +12,11 @@ topography, the plain torch step :mod:`gapflow_torch.core.step`), the GP
 path (:mod:`gapflow_torch.db`, :mod:`.models.gp`, :mod:`.core.al_chunked`
 for silent runs, the per-step host loop of :class:`Problem` for
 non-silent ones), the elastic / EHL slice (:mod:`gapflow_torch.elastic`,
-:mod:`.core.ehl`) and the differentiable blocked Cholesky and triangular
-solve (:mod:`gapflow_torch.ops.cholesky`); on an NVIDIA Hopper GPU they
-run through the CUDA kernels of :mod:`gapflow_torch.ops`
-(``csrc/*.cu``).
+:mod:`.core.ehl`), the differentiable blocked Cholesky and triangular
+solve (:mod:`gapflow_torch.ops.cholesky`) and the sharded deterministic
+and elastic runs over a mesh of shards (:mod:`gapflow_torch.parallel`);
+on an NVIDIA Hopper GPU they run through the CUDA kernels of
+:mod:`gapflow_torch.ops` (``csrc/*.cu``).
 
 Precision: float64 by default; set the environment variable
 ``GAPFLOW_X64=0`` before import to run in float32 (the production setting

@@ -73,6 +73,10 @@ _SIGNATURES = {
     # rdy2, dt, stream
     "gf_ehl_comp_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                          _F, _F, _F, _P],
+    # q, st, out, bx, by, d0, iprm, fprm, bprm, bfprm, xe, xw, yn, ys, dt,
+    # stream
+    "gf_shard_step": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _F, _P],
     # A, L, W, P, n, stream
     "gf_cholesky": [_P, _P, _P, _P, _I, _P],
     # L, B, X, W, T, n, m, stream

@@ -1,9 +1,10 @@
 """Fused MacCormack steps: CUDA kernels, their plain twins, drivers.
 
-Counterpart of :mod:`gapflow_tpu.ops.stencil`.  Nine kernels, in
+Counterpart of :mod:`gapflow_tpu.ops.stencil`.  Ten kernels, in
 ``csrc/stencil.cu`` (periodic), ``csrc/stencil_plain.cu`` (the plain
-periodic loop), ``csrc/stencil_bc.cu`` (boundary) and
-``csrc/stencil_ehl.cu`` (periodic, statics from the deformed gap):
+periodic loop), ``csrc/stencil_bc.cu`` (boundary),
+``csrc/stencil_ehl.cu`` (periodic, statics from the deformed gap) and
+``csrc/stencil_shard.cu`` (one shard of a sharded run):
 
 - :func:`fused_step` (replaces ``_kernel_fused``): one periodic step on
   the interior ``(3, nx, ny)`` state, returning the new state or, with
@@ -34,7 +35,11 @@ periodic loop), ``csrc/stencil_bc.cu`` (boundary) and
   the compensated step on the interior ``(q, q_lo)`` carry, with the
   statics derived in-kernel from the interior gap height and slip length
   and the boundary gradient patches of :func:`ehl_patches` (the EHL loop
-  deforms the gap every step, so its statics cannot be hoisted).
+  deforms the gap every step, so its statics cannot be hoisted);
+- :func:`shard_step` (replaces ``_kernel_fused_bc_shard``): one step of
+  one shard's block with a 2-deep halo, the ghost ring of each domain
+  edge the shard holds refilled between the passes, gated on the shard's
+  edge flags (the sharded loops of :mod:`gapflow_torch.parallel`).
 
 The mixed-edge kernel (``_kernel_fused_bc_mixed``) and its driver are in
 :mod:`gapflow_torch.ops.mixed_bc`.
@@ -83,7 +88,7 @@ K_MULTI = 4
 LAUNCHES = {"fused_step": 0, "comp_step": 0, "plain_steps": 0,
             "plain_steps_rem": 0, "plain_run": 0, "fused_step_bc": 0,
             "comp_step_bc": 0, "plain_steps_bc": 0, "mixed_step": 0,
-            "ehl_step": 0, "ehl_comp_step": 0}
+            "ehl_step": 0, "ehl_comp_step": 0, "shard_step": 0}
 
 #: L2 cache of an H100 (bytes), the size :func:`_plain_run_fits` assumes
 #: for a tensor on the CPU; on a CUDA device the device's own is read.
@@ -1002,3 +1007,99 @@ def make_pallas_ehl_loop_step(cfg, nx, ny, dtype=torch.float32):
                                        py, dt, cfg))
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# K9: one step of one shard of a sharded run
+# ---------------------------------------------------------------------------
+
+def shard_supported(cfg):
+    """K9's coverage, the JAX package's sharded D/N scope
+    (``parallel/pallas_halo.py:333-339``): a static pass order, edges that
+    are each fully periodic or have no periodic component, no shear
+    thinning."""
+    return cfg.MC_order != 0 and _edges_uniform(cfg) and cfg.thinning is None
+
+
+def _edge_fill(bc, c, adj):
+    """The ghost value of component ``c`` on an edge with masks ``bc``
+    from the adjacent interior value (``core.step.apply_bcs``)."""
+    return 2. * bc["val"] - adj if bc["D"][c] else adj
+
+
+def _refill_shard(cfg, q, flags):
+    """The D/N ghost refill of a shard's pass-d0 state ``q`` (3, bx+4,
+    by+4), the ring at halo depth 1 on each domain edge the shard holds
+    (``flags`` = (xe, xw, yn, ys)): x edges first, then y edges over the
+    x-refilled rows, as ``_refill_ghosts_shard`` and ``apply_bcs`` fill."""
+    xe, xw, yn, ys = (bool(f) for f in flags)
+    q = q.clone()
+    for e, on, dst, src in ((0, xe, 1, 2), (1, xw, -2, -3)):
+        if on:
+            bc = cfg.bc_edge(e)
+            for c in range(3):
+                q[c, dst] = _edge_fill(bc, c, q[c, src])
+    for e, on, dst, src in ((2, ys, 1, 2), (3, yn, -2, -3)):
+        if on:
+            bc = cfg.bc_edge(e)
+            for c in range(3):
+                q[c, :, dst] = _edge_fill(bc, c, q[c, :, src])
+    return q
+
+
+def shard_step_ref(q_blk, statics_blk, dt, cfg, flags):
+    """Plain torch twin of :func:`shard_step`, in any dtype: pass d0 on
+    the whole block (the rolls' wrap reaches only the halo's outer cells,
+    which no interior output reads), the refill of :func:`_refill_shard`,
+    pass d1, and the average with the input on the interior."""
+    pred, u = _predict_and_update(cfg, q_blk, statics_blk, float(dt),
+                                  lambda q: _refill_shard(cfg, q, flags))
+
+    def inner(arrs):
+        return [a[2:-2, 2:-2] for a in arrs]
+
+    return _combine(inner(pred), inner(q_blk), inner(u), False)
+
+
+def shard_step(q_blk, statics_blk, dt, cfg, flags):
+    """One MacCormack step of one shard of a sharded run.
+
+    ``q_blk``: (3, bx+4, by+4), the shard with a 2-deep halo from its mesh
+    neighbours and, on a domain edge the shard holds, the edge's ghost
+    value duplicated to the halo's depth; ``statics_blk``: (8, bx+4,
+    by+4), from :func:`precompute_statics` of the shard's 2-deep
+    topography block (``parallel.pallas_halo.pad_blocks2_bc``); ``flags``
+    (xe, xw, yn, ys): the shard holds the x-low, x-high, y-high, y-low
+    domain edge and that edge is not periodic.  Returns the new interior
+    (3, bx, by).  All flags zero on periodic edges give K1's step.  CUDA
+    tensors (float32) launch the kernel; CPU tensors run
+    :func:`shard_step_ref`.
+    """
+    if _on_cpu(q_blk):
+        return shard_step_ref(q_blk, statics_blk, dt, cfg, flags)
+    if not shard_supported(cfg):
+        raise ValueError("the shard kernel does not cover this "
+                         "configuration (see shard_supported)")
+    _, hx, hy = q_blk.shape
+    bx, by = hx - 4, hy - 4
+    if bx < 1 or by < 1:
+        raise ValueError(f"a shard block needs a 2-deep halo, got shape "
+                         f"{tuple(q_blk.shape)}")
+    _check_tensors(q_blk, (q_blk, (3, hx, hy)),
+                   (statics_blk, (N_STATIC, hx, hy)))
+    iprm, fprm = _kernel_params(cfg)
+    bprm, bfprm = _bc_params(cfg)
+    d0, _ = mc_directions(cfg.MC_order)
+    xe, xw, yn, ys = (int(bool(f)) for f in flags)
+    out = torch.empty((3, bx, by), dtype=q_blk.dtype, device=q_blk.device)
+    lib = _build.load()
+    with torch.cuda.device(q_blk.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gf_shard_step(q_blk.data_ptr(), statics_blk.data_ptr(),
+                               out.data_ptr(), bx, by, d0, iprm.ctypes.data,
+                               fprm.ctypes.data, bprm.ctypes.data,
+                               bfprm.ctypes.data, xe, xw, yn, ys, float(dt),
+                               stream)
+    _build.check(lib, rc, "gf_shard_step")
+    LAUNCHES["shard_step"] += 1
+    return out

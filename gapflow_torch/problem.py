@@ -35,9 +35,13 @@ surrogate may retrain or acquire and no output is due, one fused GP step
 (:meth:`_update_gp_fused`, the GP kernels on a covered float32 CUDA
 state).  :meth:`run_steps_ehl` is the fast EHL loop (end-of-step
 pressure; the EHL kernel K8 on a covered float32 CUDA state).
+:meth:`run_steps_sharded` decomposes deterministic and deterministic
+elastic runs over a mesh of shards (:mod:`gapflow_torch.parallel`; the
+shard kernel K9 on a covered float32 CUDA mesh).
 
 Not ported yet (ROADMAP queue 1): ``numerics: gp_fast_pred``, a real MD
-engine.  Configurations that need them raise ``NotImplementedError``.
+engine, the sharded GP families.  Configurations and calls that need
+them raise ``NotImplementedError``.
 """
 
 import os
@@ -1174,6 +1178,148 @@ class Problem:
             self.dt = float(out[2])
         else:
             self.simtime += n * self.dt
+
+    # ------------------------------------------------------------------
+    # Sharded paths (spatial decomposition over a mesh of shards)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _refuse_sharded(what, item):
+        raise NotImplementedError(
+            f"run_steps_sharded: {what} is not ported to gapflow_torch yet "
+            f"(ROADMAP queue 1, item {item}); run it with gapflow_tpu or "
+            f"without a mesh")
+
+    def run_steps_sharded(self, n, mesh=None, use_pallas=None,
+                          deform_every=1):
+        """Advance ``n`` steps sharded over a 2D mesh of shards
+        (:mod:`gapflow_torch.parallel`).
+
+        The state is cut into blocks, one per shard, with a halo copied
+        from the mesh neighbours before every pass.  The family routes as
+        the JAX package's:
+
+        - deterministic, adaptive dt: the sharded state step (global CFL
+          over the shards' owned cells, uniform rollback);
+        - deterministic, fixed dt: the shard kernel K9 once per shard and
+          step (``use_pallas``; periodic edges with every flag zero, D/N
+          edges with each shard's edge flags), or the plain sharded step;
+        - elastic (fixed dt): the sharded fluid between deformation
+          updates every ``deform_every`` steps (:mod:`.parallel.ehl`).
+
+        ``mesh`` defaults to every visible CUDA device
+        (:func:`parallel.grid_mesh`).  ``use_pallas=None`` takes K9 where
+        every shard is on a CUDA device, the dtype is float32 and the
+        kernel covers the configuration (:func:`ops.stencil.shard_supported`);
+        ``True`` takes it in any case (the plain twins on the CPU; a CUDA
+        tensor the kernel does not take raises).  The interior grid must
+        divide the mesh.  GP problems, and adaptive elastic ones, raise
+        ``NotImplementedError`` naming their ROADMAP item.  Syncs q with
+        its ghost ring, ``step`` and ``simtime`` (and dt, the residual and
+        the deformation where the route changes them) back into the
+        Problem; returns the interior q on the first shard's device.
+        """
+        from .ops.stencil import _fully_periodic, shard_supported
+        from .parallel import grid_mesh
+        from .parallel.halo import gather, shard_problem_arrays
+
+        if self.has_gp_model:
+            if self._route_uses_al():
+                self._refuse_sharded("the sharded chunked active-learning "
+                                     "advance", "11c")
+            if self.topo.elastic:
+                self._refuse_sharded("GP x elastic", "11b")
+            self._refuse_sharded("the frozen-GP family", "11a")
+        if self.topo.elastic and self.numerics["adaptive"]:
+            # the JAX package runs it through the GP x elastic loop
+            self._refuse_sharded("adaptive dt on an elastic problem", "11b")
+        if self.step is None:
+            self._pre_run()
+        if mesh is None:
+            mesh = grid_mesh()
+        cfg = self._solver_cfg
+        nx, ny = self.grid["Nx"], self.grid["Ny"]
+        px, py = mesh.shape["x"], mesh.shape["y"]
+        if nx % px or ny % py:
+            raise RuntimeError("interior grid must divide the mesh shape")
+
+        if self.topo.elastic:
+            return self._run_steps_sharded_ehl(n, mesh, use_pallas,
+                                               deform_every)
+
+        if self.numerics["adaptive"]:
+            from .parallel import (make_sharded_state_trajectory,
+                                   shard_problem_state)
+            out = make_sharded_state_trajectory(cfg, mesh, n)(
+                shard_problem_state(self, mesh))
+            q = gather(out.q)
+            self.q[:, 1:-1, 1:-1] = q.cpu().numpy()
+            self._communicate_ghost_buffers()
+            self.step = int(out.step)
+            self.simtime = float(out.simtime)
+            self.dt = float(out.dt)
+            self.residual = float(out.residual)
+            self.kinetic_energy_old = float(out.ekin_old)
+            return q
+
+        if use_pallas is None:
+            use_pallas = (all(d.type == "cuda" for d in mesh.devices)
+                          and self.dtype == torch.float32
+                          and shard_supported(cfg))
+
+        q, topo, extra = shard_problem_arrays(self, mesh)
+        if use_pallas:
+            from .parallel.halo import split_blocks
+            from .parallel.pallas_halo import (
+                make_sharded_bc_pallas_loop, make_sharded_pallas_loop,
+                pad_blocks2, pad_blocks2_bc)
+            extra_f = self.fc.get_real_field("extra").p
+            if _fully_periodic(cfg):
+                loop = make_sharded_pallas_loop(cfg, mesh, nx, ny,
+                                                self.dtype)
+                t2 = pad_blocks2(self.topo.full, px, py)
+                e2 = pad_blocks2(extra_f, px, py)
+            else:
+                per_x = all(cfg.bc_edge(0)["P"])
+                per_y = all(cfg.bc_edge(2)["P"])
+                loop = make_sharded_bc_pallas_loop(cfg, mesh, nx, ny,
+                                                   self.dtype)
+                t2 = pad_blocks2_bc(self.topo.full, px, py, per_x, per_y)
+                e2 = pad_blocks2_bc(extra_f, px, py, per_x, per_y)
+            q = loop(q, split_blocks(t2, mesh, self.dtype),
+                     split_blocks(e2, mesh, self.dtype), self.dt, n)
+        else:
+            from .parallel import make_sharded_trajectory
+            q = make_sharded_trajectory(cfg, mesh, n)(q, topo, extra,
+                                                      self.dt)
+
+        q = gather(q)
+        self.q[:, 1:-1, 1:-1] = q.cpu().numpy()
+        self._communicate_ghost_buffers()
+        self.step += n
+        self.simtime += n * self.dt
+        return q
+
+    def _run_steps_sharded_ehl(self, n, mesh, use_pallas, deform_every):
+        """The deterministic elastic family of :meth:`run_steps_sharded`:
+        the sharded fluid and the deformation every ``deform_every`` steps
+        on the first shard's device (:func:`parallel.ehl.make_sharded_ehl_loop`)."""
+        from .parallel.ehl import make_sharded_ehl_loop
+        from .parallel.halo import gather, shard_problem_arrays
+
+        loop = make_sharded_ehl_loop(self, mesh, deform_every=deform_every,
+                                     use_pallas=use_pallas)
+        q, _, _ = shard_problem_arrays(self, mesh)
+        q, u = loop(q, self.topo.ElasticDeformation.u_prev, self.dt, n)
+        self._sync_deformation(u)
+        q = gather(q)
+        self.q[:, 1:-1, 1:-1] = q.cpu().numpy()
+        self._communicate_ghost_buffers()
+        self.fc.get_real_field("pressure").p[...] = eos_pressure(
+            self._tensor(self.q[0]), self._solver_cfg.prop).cpu().numpy()
+        self.step += n
+        self.simtime += n * self.dt
+        return q
 
     # ------------------------------------------------------------------
     # I/O

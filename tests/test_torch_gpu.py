@@ -6,12 +6,15 @@ loop) on ragged shapes (no multiple of the 8 x 32 tile), the plain
 whole-run kernels (K2p/Ke, Kv, K3p: equal bit for bit to K1 or K3
 launched once per step), K5/K6/K7 (the GP-closed steps) at 128 x 128,
 K10 (the blocked Cholesky and triangular solve, forward and backward),
-and runs that take the kernels.  The
+K9 (one shard of a sharded run: every flag pattern against its twin,
+K1 and K3 bit for bit) and runs that take the kernels.  The
 kernels have no CPU mode, so these tests skip without a CUDA device.
 This file imports no JAX; on a machine without it, run
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -m gpu
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -585,3 +588,80 @@ def test_per_step_gp_loop_fuses_through_the_kernels(cuda, tmp_path):
     assert p._fused_steps == 4 and G.LAUNCHES["gp_step_bc"] == 4
     assert np.isfinite(p.q).all()
     assert np.isfinite(p.pressure.pressure).all()
+
+
+# -- the shard kernel K9 ------------------------------------------------------
+
+def _shard_inputs(case, nx=40, ny=72):
+    """A perturbed state of ``case`` at nx x ny (ragged tiles) as one shard
+    block with its 2-deep halo (serial ghosts on the D/N edges), and its
+    statics."""
+    from gapflow_torch.models.closures_opt import precompute_statics
+    from gapflow_torch.parallel.pallas_halo import pad_blocks2_bc
+    p = _problem(*(BC_CASES[case] if case else ("",)), nx=nx, ny=ny)
+    cfg = p._solver_cfg
+    per = (all(cfg.bc_edge(0)["P"]), all(cfg.bc_edge(2)["P"]))
+    st = perturbed_state(p, seed=0, amp=0.01)
+
+    def blk(a):
+        return torch.as_tensor(pad_blocks2_bc(a.cpu().numpy(), 1, 1, *per),
+                               dtype=torch.float32, device="cuda")
+
+    t2 = blk(st.topo)
+    return (p, blk(st.q), precompute_statics(t2[:3], blk(st.extra))
+            .contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags", list(itertools.product((0, 1), repeat=4)))
+def test_shard_step_matches_twin(cuda, flags):
+    """K9 on every flag pattern equals its twin bit for bit (40 x 72 is
+    no multiple of the 8 x 32 tile)."""
+    p, q, st = _shard_inputs("dn_all_asymmetric")
+    cfg = p._solver_cfg
+    S.reset_launches()
+    out = S.shard_step(q, st, p.dt, cfg, flags)
+    assert S.LAUNCHES["shard_step"] == 1
+    assert torch.equal(out, S.shard_step_ref(q, st, p.dt, cfg, flags))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["", "dn_x", "dn_all_asymmetric"])
+def test_shard_step_matches_k1_and_k3(cuda, case):
+    """K9 on a whole-domain block: with zero flags on periodic edges it is
+    K1's step, with every D/N edge flagged K3's, bit for bit."""
+    p, q, st = _shard_inputs(case)
+    cfg = p._solver_cfg
+    q_int = q[:, 2:-2, 2:-2].contiguous()
+    if case:
+        from gapflow_torch.parallel.pallas_halo import shard_flags
+        from gapflow_torch.parallel import grid_mesh
+        flags = shard_flags(cfg, grid_mesh(["cuda"]), 0, 0)
+        st_g = st[:, 1:-1, 1:-1].contiguous()
+        ref = S.fused_step_bc(q_int, st_g, p.dt, cfg)
+    else:
+        flags = (0, 0, 0, 0)
+        ref = S.fused_step(q_int, st[:, 2:-2, 2:-2].contiguous(), p.dt, cfg)
+    assert torch.equal(S.shard_step(q, st, p.dt, cfg, flags), ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["", "dn_all_asymmetric"])
+def test_sharded_run_takes_k9(cuda, case):
+    """run_steps_sharded on a 2 x 2 mesh of cuda:0 shards launches K9 once
+    per shard and step and equals the serial plain kernel route bit for
+    bit; a float64 CUDA state on the kernel route raises."""
+    from gapflow_torch.parallel import grid_mesh
+    grid = BC_CASES[case] if case else ("",)
+    p, s = _problem(*grid), _problem(*grid)
+    S.reset_launches()
+    p.run_steps_sharded(6, grid_mesh(["cuda:0"] * 4, (2, 2)))
+    assert {k: v for k, v in S.LAUNCHES.items() if v} == {"shard_step": 24}
+    s.run_steps_fast(6, compensated=False)
+    np.testing.assert_array_equal(p.q, s.q)
+    p64 = Problem.from_string(
+        journal_yaml(40, 72, *grid, out="data/torch_gpu"), device="cuda",
+        dtype=torch.float64)
+    with pytest.raises(TypeError):
+        p64.run_steps_sharded(1, grid_mesh(["cuda:0"] * 4, (2, 2)),
+                              use_pallas=True)
