@@ -1621,12 +1621,43 @@ def k10_bound(n, m=None):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def ptxas_entries(text):
+    """One ``name: registers, shared memory; stack, spills`` string per
+    kernel in a source's section of the ptxas log (names demangled to the
+    kernel and its template arguments)."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"\d([a-z_]+?kernel|tril_copy)"
+                          r"(I((?:L[ib]\d+E)+)E)?", m.group(1))
+            name = k.group(1) if k else m.group(1)
+            if k and k.group(3):
+                name += "<" + ",".join(
+                    v if t == "i" else "TF"[v == "0"]
+                    for t, v in re.findall(r"L([ib])(\d+)E", k.group(3)))
+                name += ">"
+        elif name and ("stack frame" in line or "Used" in line):
+            out.setdefault(name, []).append(
+                line.split("ptxas info    : ")[-1].strip())
+    return [f"{k}: {', '.join(v)}" for k, v in out.items()]
+
+
+# kernel-name prefixes of one K10 call, the split k10_profile prints
+K10_PARTS = (("diagonal tiles", "diag_kernel"),
+             ("batched inverses", "inv_kernel"),
+             ("products", "gemm_kernel"), ("copies", "tril_copy"))
+
+
 def k10_profile(C, A, L, B):
     """Where one call of each K10 entry goes on the card: torch.profiler's
-    device time per CUDA kernel (and copy) over one call, beside the
-    call's own event time.  Prints only; where the profiler records no
-    device time it says so."""
+    device time per CUDA kernel and copy over one call, split into the
+    diagonal tiles, the batched inverses, the products and the copies.
+    Raises if the kernels the call launched differ from
+    ``C.kernel_launches(n)``; where the profiler records no device time it
+    says so."""
     from torch.profiler import ProfilerActivity, profile
+    n = A.shape[0]
     for label, fn in (("cholesky", lambda: C.cholesky_kernel(A)),
                       ("tril_solve", lambda: C.tril_solve_kernel(L, B))):
         fn()
@@ -1642,15 +1673,31 @@ def k10_profile(C, A, L, B):
                 dev = getattr(e, "cuda_time_total", 0.)
             if dev and not e.key.startswith("aten::"):
                 rows.append((dev, e.count, e.key))
-        total = sum(r[0] for r in rows)
         if not rows:
-            print(f"  profile {label} n {A.shape[0]}: no device time "
-                  f"recorded")
+            print(f"  profile {label} n {n}: no device time recorded")
             continue
-        print(f"  profile {label} n {A.shape[0]}, one call: device time "
-              f"{total / 1e3:.4f} ms over "
-              + "; ".join(f"{k[:40]} x{c} {d / 1e3:.4f} ms"
-                          for d, c, k in sorted(rows, reverse=True)[:6]))
+        total = sum(r[0] for r in rows)
+        parts = {part: [0., 0] for part, _ in K10_PARTS}
+        parts["other"] = [0., 0]
+        for dev, count, key in rows:
+            part = next((p for p, k in K10_PARTS if k in key), "other")
+            if "Memcpy" in key or "Memset" in key:
+                part = "copies"
+            parts[part][0] += dev
+            parts[part][1] += count
+        kernels = sum(c for d, c, k in rows
+                      if "Memcpy" not in k and "Memset" not in k)
+        print(f"  profile {label} n {n}, one call: device time "
+              f"{total / 1e3:.4f} ms = "
+              + " + ".join(f"{p} {d / 1e3:.4f} (x{c}, {d / total:.1%})"
+                           for p, (d, c) in parts.items() if c)
+              + f"; {kernels} kernels (expected "
+              f"{C.kernel_launches(n)[label]})")
+        for dev, count, key in sorted(rows, reverse=True)[:8]:
+            print(f"    {key[:90]} x{count} {dev / 1e3:.4f} ms")
+        if kernels != C.kernel_launches(n)[label]:
+            raise RuntimeError(f"K10 {label}: {kernels} kernels in one "
+                               f"call, expected {C.kernel_launches(n)}")
 
 
 def linalg_phase():
@@ -1680,8 +1727,9 @@ def linalg_phase():
     launches = dict(C.LAUNCHES)
     want = {"cholesky": len(mats) + 1, "tril_solve": len(rhs) + 2}
     print(f"  launch sequences {launches} (expected {want}); CUDA kernels "
-          f"per call: "
-          + ", ".join(f"{n}: {C.kernel_launches(n)}" for n in K10_SIZES))
+          f"per call (cholesky, tril_solve): "
+          + ", ".join(f"{n}: {tuple(C.kernel_launches(n).values())}"
+                      for n in K10_SIZES))
     if launches != want:
         raise RuntimeError(f"K10: launches {launches}, expected {want}")
 
@@ -2549,11 +2597,15 @@ def main():
           f"{time.perf_counter() - t0:.2f} s ({_build.library_path().name})")
     log = _build.library_path().with_suffix(".log")
     if log.is_file():       # absent where the library was built earlier
-        shard = log.read_text().split("== stencil_shard.cu")[-1]
+        text = log.read_text()
+        shard = text.split("== stencil_shard.cu")[-1]
         print("  ptxas, K9 (stencil_shard.cu): " + "; ".join(
             line.split("ptxas info    : ")[-1].strip()
             for line in shard.splitlines()
             if "stack frame" in line or "Used" in line))
+        print("  ptxas, K10 (cholesky.cu): " + "; ".join(
+            ptxas_entries(text.split("== cholesky.cu")[-1]
+                          .split("\n== ")[0])))
 
     # -- phase 2: kernels vs plain twins, float32 on the card --------------
     print("phase 2: kernel vs plain twin (256 x 256 perturbed journal)")

@@ -28,7 +28,12 @@ BUILD_DIR = _PKG.parent / "build" / "gapflow_torch"
 # ill-conditioned (the BWR polynomial, DH's r - 1).  The stencil kernels
 # are bound by memory bytes, the GP kernels by sqrt and exp, neither by
 # the separate multiply and add.  The Cholesky and solve kernels are bound
-# by multiply-adds, which this flag issues as two operations each.
+# by multiply-adds, which this flag issues as two operations each; their
+# products keep the separate multiply and add so that they equal their
+# twins bit for bit, and gain their speed from a shorter critical path (the
+# diagonal tile's sub-blocked factorization and inverse, overlapped with
+# the trailing update on a second stream) and from output tiles that fill
+# the card, not from the arithmetic rate.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC"]
 
@@ -77,9 +82,9 @@ _SIGNATURES = {
     # stream
     "gf_shard_step": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                       _F, _P],
-    # A, L, W, P, n, stream
-    "gf_cholesky": [_P, _P, _P, _P, _I, _P],
-    # L, B, X, W, T, n, m, stream
+    # A, L, W, n, stream, side stream
+    "gf_cholesky": [_P, _P, _P, _I, _P, _P],
+    # L, B, X, W, Y, n, m, stream
     "gf_tril_solve": [_P, _P, _P, _P, _P, _I, _I, _P],
 }
 

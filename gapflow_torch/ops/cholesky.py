@@ -2,19 +2,25 @@
 twins and the differentiable ops.  Opt in with ``GAPFLOW_PALLAS_LINALG=1``.
 
 Counterpart of :mod:`gapflow_tpu.ops.cholesky`.  Two kernels, in
-``csrc/cholesky.cu``:
+``csrc/cholesky.cu`` (whose head comment gives the design):
 
 - :func:`cholesky_kernel` (replaces ``_chol_kernel``): right-looking
-  blocked factorization with 128-wide block columns: the diagonal tile by
-  the column recurrence in one thread block's shared memory, its inverse
-  by forward substitution, the panel and the trailing update as tiled
-  float32 products;
-- :func:`tril_solve_kernel` (replaces ``_trsm_kernel``): the blocked solve
-  ``L X = B`` per block row, ``X_k = L_kk^-1 X_k`` and ``X_j -= L_jk X_k``.
+  blocked factorization with 128-wide block columns.  The diagonal tile,
+  on one SM, is the critical path: it is factored as 4 x 4 sub-blocks of
+  32 (one warp per diagonal sub-block, a thread per row below it, all
+  warps on the rank-32 updates), and inverted by products (32 x 32
+  inverses built up 32 -> 64 -> 128 by the block formula); the panel and
+  the trailing update are float32 products whose tiles are sized per call
+  to fill the card.  The next tile and its panel run on a second stream
+  (:func:`_side_stream`) while the rest of the trailing update runs;
+- :func:`tril_solve_kernel` (replaces ``_trsm_kernel``): every diagonal
+  tile of ``L`` inverted in one launch, then per block row
+  ``X_k = L_kk^-1 Y_k`` and ``Y_j -= L_jk X_k``.
 
-Beside each is its plain torch twin (``_chol_ref``, ``_trsm_ref``): the
-same blocked algorithm with the same operations in the same order (a
-ragged last block where ``n`` is no multiple of 128), on any device and
+Beside each is its plain torch twin (``_chol_ref``, ``_trsm_ref``, from
+``_chol_tile_ref``, ``_tril_inv_ref`` and ``_mm_ref``): the same blocked
+algorithm with the same operations in the same order for every element
+(a ragged last block where ``n`` is no multiple of 128), on any device and
 in any dtype.  A wrapper takes the twin only for a tensor on the CPU; for
 a CUDA tensor it launches the kernel or raises.  Every launch sequence
 adds one to its entry in :data:`LAUNCHES`.
@@ -36,12 +42,12 @@ import torch
 from . import _build
 
 BLK = 128
+SB = 32                      # sub-block of a tile (one warp in the kernels)
 _VMEM_LIMIT = 100 * 1024 * 1024
 
 #: Kernel launch sequences per wrapper since the last reset (the twins
-#: count nothing).  One call of :func:`cholesky_kernel` launches
-#: ``3 n / 128 - 1`` kernels, one of :func:`tril_solve_kernel`
-#: ``3 n / 128 - 1`` (:func:`kernel_launches`).
+#: count nothing).  One call launches :func:`kernel_launches` CUDA
+#: kernels.
 LAUNCHES = {"cholesky": 0, "tril_solve": 0}
 
 
@@ -51,8 +57,29 @@ def reset_launches():
 
 
 def kernel_launches(n):
-    """CUDA kernels one call of either wrapper launches at size ``n``."""
-    return 3 * (n // BLK) - 1
+    """CUDA kernels one call of each wrapper launches at size ``n``: the
+    factorization a ``tril`` copy, then per block column its diagonal
+    tile, the panel and the trailing update in two launches, the next
+    block column and the rest (the last tile has neither, the one before
+    it no rest); the solve one batched launch of every tile inverse, then
+    per block row two products (one after the last)."""
+    k = n // BLK
+    return {"cholesky": 4 * k - 3, "tril_solve": 2 * k}
+
+
+_SIDE_STREAMS = {}
+
+
+def _side_stream(device):
+    """The factorization's second stream on ``device``, made once, at high
+    priority: its one-block diagonal tiles then take an SM as soon as one
+    frees up, ahead of the trailing update's queued blocks."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _SIDE_STREAMS:
+        _SIDE_STREAMS[index] = torch.cuda.Stream(device=index, priority=-1)
+    return _SIDE_STREAMS[index]
 
 
 def fits_vmem(n, itemsize=4, nrhs=0):
@@ -79,39 +106,91 @@ def _use_kernel(n, m=0, dtype=torch.float32, device="cpu"):
 # ---------------------------------------------------------------------------
 
 def _mm_ref(A, B):
-    """A @ B summed over the inner index in order, product then sum, as
-    the kernels' tiled products do."""
-    acc = torch.zeros((A.shape[0], B.shape[1]), dtype=A.dtype,
+    """A @ B (batched over leading dimensions) summed over the inner index
+    in order, product then sum, as the kernels' products do.  Where an
+    operand is triangular the kernels skip its zero terms; adding them
+    here changes no value."""
+    acc = torch.zeros(A.shape[:-1] + B.shape[-1:], dtype=A.dtype,
                       device=A.device)
-    for k in range(A.shape[1]):
-        acc = acc + A[:, k:k + 1] * B[k:k + 1, :]
+    for k in range(A.shape[-1]):
+        acc = acc + A[..., :, k:k + 1] * B[..., k:k + 1, :]
     return acc
+
+
+def _recip(x):
+    """1 / x by IEEE division (a tensor numerator: torch's CUDA division by
+    a number multiplies by its reciprocal instead)."""
+    return torch.ones_like(x) / x
 
 
 def _chol_tile_ref(T):
     """Lower Cholesky factor of a diagonal tile by the column recurrence
-    (``_chol_tile``); reads the lower triangle only."""
+    (``_chol_tile``, with ``c = col * (1 / d)``); reads the lower triangle
+    only.  The kernel's sub-blocked order (a warp per 32 x 32 diagonal
+    sub-block, a thread per row below it, the rank-32 updates) leaves each
+    element's operations and their order as here: every element takes the
+    subtractions of the columns j before it in increasing j."""
     T = torch.tril(T)
     b = T.shape[0]
     for j in range(b):
         d = torch.sqrt(torch.clamp(T[j, j], min=1e-30))
-        c = T[j + 1:, j] / d
+        c = T[j + 1:, j] * _recip(d)
         T[j + 1:, j + 1:] = T[j + 1:, j + 1:] - c[:, None] * c[None, :]
         T[j + 1:, j] = c
         T[j, j] = d
     return torch.tril(T)
 
 
-def _tril_inv_ref(T):
-    """Inverse of a lower-triangular tile by right-looking forward
-    substitution: row l divided by T[l, l], then eliminated below."""
-    b = T.shape[0]
-    V = torch.eye(b, dtype=T.dtype, device=T.device)
+def _tril_inv_sub_ref(T):
+    """Inverse of lower-triangular tiles of at most 32 (batched) by
+    forward substitution, right-looking: row l times 1 / T[l, l], then
+    eliminated below; element (i, t) takes its subtractions in increasing
+    l, as the kernel's warp (lane t, column t) does."""
+    b = T.shape[-1]
+    V = torch.eye(b, dtype=T.dtype, device=T.device).expand(T.shape)
+    V = V.clone()
     for l in range(b):
-        V[l, :l + 1] = V[l, :l + 1] / T[l, l]
-        V[l + 1:, :l + 1] = (V[l + 1:, :l + 1]
-                             - T[l + 1:, l:l + 1] * V[l:l + 1, :l + 1])
+        V[..., l, :l + 1] = V[..., l, :l + 1] * _recip(T[..., l, l:l + 1])
+        V[..., l + 1:, :l + 1] = (V[..., l + 1:, :l + 1]
+                                  - T[..., l + 1:, l:l + 1]
+                                  * V[..., l:l + 1, :l + 1])
     return V
+
+
+def _tril_inv_ref(T):
+    """Inverse of lower-triangular tiles (batched over leading dimensions)
+    by products: the 32 x 32 diagonal blocks by substitution, built up
+    32 -> 64 -> 128 with ``[A 0; B C]^-1 = [A^-1 0; -C^-1 (B A^-1), C^-1]``
+    (halves of 64 above 64, else of 32).  Reads the lower triangle only."""
+    b = T.shape[-1]
+    if b <= SB:
+        return _tril_inv_sub_ref(T)
+    h = 2 * SB if b > 2 * SB else SB
+    A, B, C = T[..., :h, :h], T[..., h:, :h], T[..., h:, h:]
+    if b == 2 * h:                   # both halves in one batch
+        both = _tril_inv_ref(torch.stack((A, C)))
+        Ai, Ci = both[0], both[1]
+    else:
+        Ai, Ci = _tril_inv_ref(A), _tril_inv_ref(C)
+    V = torch.zeros_like(T)
+    V[..., :h, :h] = Ai
+    V[..., h:, h:] = Ci
+    V[..., h:, :h] = -_mm_ref(Ci, _mm_ref(B, Ai))
+    return V
+
+
+def _tril_inv_tiles_ref(L):
+    """The inverses of all diagonal tiles of ``L`` (the solve's one
+    batched launch), as a list per block row; the full tiles in one
+    batch, a ragged last tile on its own."""
+    n = L.shape[0]
+    full = n // BLK * BLK
+    tiles = [torch.tril(L[x0:x0 + BLK, x0:x0 + BLK])
+             for x0 in range(0, full, BLK)]
+    out = list(_tril_inv_ref(torch.stack(tiles))) if tiles else []
+    if full < n:
+        out.append(_tril_inv_ref(torch.tril(L[full:, full:])))
+    return out
 
 
 def _chol_ref(A):
@@ -132,13 +211,14 @@ def _chol_ref(A):
 
 def _trsm_ref(L, B):
     """Plain torch twin of :func:`tril_solve_kernel`: X = L^-1 B."""
-    X = B.clone()
+    W = _tril_inv_tiles_ref(L)
+    X = torch.empty_like(B)
+    Y = B.clone()
     n = L.shape[0]
-    for x0 in range(0, n, BLK):
+    for k, x0 in enumerate(range(0, n, BLK)):
         x1 = min(x0 + BLK, n)
-        T = _mm_ref(_tril_inv_ref(torch.tril(L[x0:x1, x0:x1])), X[x0:x1])
-        X[x1:] = X[x1:] - _mm_ref(L[x1:, x0:x1], T)
-        X[x0:x1] = T
+        X[x0:x1] = _mm_ref(W[k], Y[x0:x1])
+        Y[x1:] = Y[x1:] - _mm_ref(L[x1:, x0:x1], X[x0:x1])
     return X
 
 
@@ -166,6 +246,13 @@ def _check(t, rows, what):
                          f"multiples of {BLK}, got {tuple(t.shape)}")
 
 
+def _aligned(t):
+    """``t`` contiguous at a 16-byte aligned address (the kernels copy
+    rows as 16-byte vectors), copied if it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def cholesky_kernel(A):
     """Lower Cholesky factor of the (n, n) matrix ``A`` (its lower
     triangle is read), upper triangle zero.  CUDA tensors (float32,
@@ -174,15 +261,14 @@ def cholesky_kernel(A):
         return _chol_ref(A)
     n = A.shape[0]
     _check(A, n, "cholesky")
-    A = A.contiguous()
+    A = _aligned(A)
     L = torch.empty_like(A)
     W = torch.empty((BLK, BLK), dtype=A.dtype, device=A.device)
-    P = torch.empty((n, BLK), dtype=A.dtype, device=A.device)
     lib = _build.load()
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.gf_cholesky(A.data_ptr(), L.data_ptr(), W.data_ptr(),
-                             P.data_ptr(), n, stream)
+        rc = lib.gf_cholesky(A.data_ptr(), L.data_ptr(), W.data_ptr(), n,
+                             stream, _side_stream(A.device).cuda_stream)
     _build.check(lib, rc, "gf_cholesky")
     LAUNCHES["cholesky"] += 1
     return L
@@ -191,8 +277,8 @@ def cholesky_kernel(A):
 def tril_solve_kernel(L, B):
     """X = L^-1 B for the lower-triangular (n, n) ``L`` and (n, m) ``B``.
     CUDA tensors (float32, n and m multiples of 128) launch the kernels;
-    a non-contiguous operand (the reversed operands of the upper solve) is
-    copied contiguous first.  CPU tensors run :func:`_trsm_ref`."""
+    a non-contiguous or unaligned operand (the reversed operands of the
+    upper solve) is copied first.  CPU tensors run :func:`_trsm_ref`."""
     if _on_cpu(L):
         return _trsm_ref(L, B)
     n = L.shape[0]
@@ -201,17 +287,17 @@ def tril_solve_kernel(L, B):
     if B.device != L.device:
         raise ValueError(f"tensors on different devices: {L.device} and "
                          f"{B.device}")
-    L = L.contiguous()
-    B = B.contiguous()
+    L = _aligned(L)
+    B = _aligned(B)
     m = B.shape[1]
     X = torch.empty_like(B)
-    W = torch.empty((BLK, BLK), dtype=L.dtype, device=L.device)
-    T = torch.empty((BLK, m), dtype=L.dtype, device=L.device)
+    W = torch.empty((n // BLK, BLK, BLK), dtype=L.dtype, device=L.device)
+    Y = torch.empty_like(B)
     lib = _build.load()
     with torch.cuda.device(L.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gf_tril_solve(L.data_ptr(), B.data_ptr(), X.data_ptr(),
-                               W.data_ptr(), T.data_ptr(), n, m, stream)
+                               W.data_ptr(), Y.data_ptr(), n, m, stream)
     _build.check(lib, rc, "gf_tril_solve")
     LAUNCHES["tril_solve"] += 1
     return X

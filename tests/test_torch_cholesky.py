@@ -5,6 +5,11 @@ against the JAX package's (CPU).
   ``_pallas_tril_solve`` in interpret mode, float32, within the
   reference's own tolerance for its kernels (rtol 2e-4, atol 5e-5,
   tests/test_cholesky.py);
+- the tile twins (the factor and the inverse by products) against the
+  JAX package's ``_chol_tile`` and ``_tril_inv_tile`` (plain jnp) at
+  float64 and float32, on an SPD tile and a GP Gram tile of condition
+  number about 1e4; the solve's batched tile-inverse twin against
+  ``_tril_inv_tile`` per tile;
 - both autograd Functions against ``jax.grad`` of the JAX package's
   custom VJPs at float64, forward and backward routed through the twins
   (the gate forced open: on the CPU a kernel wrapper runs its twin) and
@@ -46,7 +51,7 @@ def route(request, monkeypatch):
     return request.param
 
 
-@pytest.mark.parametrize("n", [256, 384])
+@pytest.mark.parametrize("n", [256, 384, 512])
 def test_chol_twin_matches_pallas_interpret(n):
     from jax.experimental.pallas import tpu as pltpu
     A = _spd(n).astype(np.float32)
@@ -57,7 +62,7 @@ def test_chol_twin_matches_pallas_interpret(n):
     assert np.array_equal(out, np.tril(out))
 
 
-@pytest.mark.parametrize("n", [256, 384])
+@pytest.mark.parametrize("n", [256, 384, 512])
 def test_trsm_twin_matches_pallas_interpret(n):
     from jax.experimental.pallas import tpu as pltpu
     L = np.linalg.cholesky(_spd(n)).astype(np.float32)
@@ -67,6 +72,64 @@ def test_trsm_twin_matches_pallas_interpret(n):
                                                   jnp.asarray(B)))
     out = tchol._trsm_ref(torch.tensor(L), torch.tensor(B)).numpy()
     np.testing.assert_allclose(out, ref, rtol=2e-4, atol=5e-5)
+
+
+def _gram(n, cond=1e4, seed=7):
+    """A GP's noisy RBF Gram matrix on n points of the unit square, the
+    noise set so that its condition number is about ``cond``."""
+    x = np.random.default_rng(seed).random((n, 2))
+    K = np.exp(-((x[:, None] - x[None]) ** 2).sum(-1) / (2 * 0.3 ** 2))
+    return K + np.linalg.eigvalsh(K)[-1] / cond * np.eye(n)
+
+
+# (tile, dtype, rtol, atol): float64 to 1e-12 of the reference (the two
+# differ in rounding only: the JAX tile inverse is Newton-Schulz, the
+# twin the block formula); float32 within the kernels' tolerance
+TILE_CASES = [(np.float64, 1e-12, 1e-12), (np.float32, 2e-4, 5e-5)]
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", TILE_CASES)
+@pytest.mark.parametrize("tile", ["spd", "gram"])
+def test_tile_twins_match_jax_tiles(tile, dtype, rtol, atol):
+    """The diagonal tile's factor (``_chol_tile_ref``) and its inverse by
+    products (``_tril_inv_ref``) against the JAX package's ``_chol_tile``
+    and ``_tril_inv_tile`` on one 128 tile; the inverse of the same
+    factor in both, so that it is compared on its own.  ``_tril_inv_tile``
+    computes in float32 only (its products' ``preferred_element_type``),
+    so at float64 the inverse is held against the JAX package's
+    ``tril_solve`` of the identity (XLA's triangular solve)."""
+    A = _spd(128) if tile == "spd" else _gram(128)
+    if tile == "gram":
+        assert 3e3 < np.linalg.cond(A) < 3e4
+    A = A.astype(dtype)
+    L_j = np.asarray(jchol._chol_tile(jnp.asarray(A)))
+    L_t = tchol._chol_tile_ref(torch.tensor(A)).numpy()
+    np.testing.assert_allclose(L_t, L_j, rtol=rtol, atol=atol)
+    if dtype == np.float32:
+        W_j = np.asarray(jchol._tril_inv_tile(jnp.asarray(L_j)))
+    else:
+        W_j = np.asarray(jchol.tril_solve(jnp.asarray(L_j),
+                                          jnp.eye(128, dtype=dtype)))
+    W_t = tchol._tril_inv_ref(torch.tensor(L_j)).numpy()
+    np.testing.assert_allclose(W_t, W_j, rtol=rtol, atol=atol)
+    assert np.array_equal(W_t, np.tril(W_t))
+
+
+@pytest.mark.parametrize("n", [384, 448])
+def test_batched_tile_inverses_match_jax_per_tile(n):
+    """The solve's all-tiles inverse twin (one batch, the ragged last
+    tile of 448 on its own) against ``_tril_inv_tile`` tile by tile
+    (float32, the kernels' tolerance), and the batch against the twin of
+    each tile alone, bit for bit."""
+    L = np.linalg.cholesky(_gram(n, seed=n)).astype(np.float32)
+    Ws = tchol._tril_inv_tiles_ref(torch.tensor(L))
+    assert len(Ws) == -(-n // 128)
+    for k, W in enumerate(Ws):
+        x0, x1 = 128 * k, min(128 * k + 128, n)
+        tile = L[x0:x1, x0:x1]
+        ref = np.asarray(jchol._tril_inv_tile(jnp.asarray(tile)))
+        np.testing.assert_allclose(W.numpy(), ref, rtol=2e-4, atol=5e-5)
+        assert torch.equal(W, tchol._tril_inv_ref(torch.tensor(tile)))
 
 
 def test_cholesky_vjp_matches_jax(route):
@@ -135,6 +198,16 @@ def test_gate_truth_table(monkeypatch, env, dtype, n, m, device, expected):
     monkeypatch.setenv("GAPFLOW_PALLAS_LINALG", env)
     assert tchol._use_kernel(n, m, dtype, device) is expected
     assert tchol.fits_vmem(n, nrhs=m) == jchol.fits_vmem(n, nrhs=m)
+
+
+@pytest.mark.parametrize("n,expected", [(128, (1, 2)), (256, (5, 4)),
+                                        (2048, (61, 32))])
+def test_kernel_launches_per_call(n, expected):
+    """The CUDA kernels one call launches (chip_smoke.py phase 2k holds the
+    profiler's count to these): the factorization a tril copy and per
+    block column its tile, panel and two trailing-update launches; the
+    solve one batched tile-inverse launch and two products a block row."""
+    assert tuple(tchol.kernel_launches(n).values()) == expected
 
 
 def test_tril_solve_gate_needs_blocked_rhs(monkeypatch):

@@ -511,11 +511,13 @@ def linalg(cuda, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [256, 384])
+@pytest.mark.parametrize("n", [256, 384, 1024, 2048])
 def test_cholesky_kernel_matches_twin_and_library(linalg, n):
     """Bit for bit against the twin (the same operations in the same
     order); against the library rtol 2e-4, atol 5e-5, the reference's
-    tolerance for its kernel against XLA (tests/test_cholesky.py)."""
+    tolerance for its kernel against XLA (tests/test_cholesky.py).  At
+    2048 the trailing updates take both their product tiles (64 x 64 while
+    these launch a block per SM, then 32 x 32)."""
     A = _spd(n)
     L = linalg.cholesky(A)
     assert linalg.LAUNCHES["cholesky"] == 1
@@ -526,8 +528,11 @@ def test_cholesky_kernel_matches_twin_and_library(linalg, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,m", [(256, 128), (384, 256)])
+@pytest.mark.parametrize("n,m", [(256, 128), (384, 256), (2048, 128),
+                                 (2048, 2048)])
 def test_tril_solve_kernel_matches_twin_and_library(linalg, n, m):
+    """As the factorization; at n = 2048, m = 128 and m = 2048 between
+    them take every product tile of the solve (16 x 32 to 64 x 64)."""
     L = torch.linalg.cholesky(_spd(n))
     B = torch.tensor(np.random.default_rng(1).standard_normal((n, m)),
                      dtype=torch.float32, device="cuda")
@@ -537,6 +542,21 @@ def test_tril_solve_kernel_matches_twin_and_library(linalg, n, m):
     torch.testing.assert_close(
         X, torch.linalg.solve_triangular(L, B, upper=False), rtol=2e-4,
         atol=5e-5)
+
+
+@pytest.mark.gpu
+def test_cholesky_kernel_on_a_side_stream(linalg):
+    """Called on a non-default stream, the factorization's two streams
+    (that one and its own high-priority stream) still meet before the
+    result is read: bit for bit against the twin."""
+    A = _spd(1024, seed=3)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        L = linalg.cholesky_kernel(A)
+        same = torch.equal(L, linalg._chol_ref(A))
+    torch.cuda.current_stream().wait_stream(s)
+    assert same and linalg.LAUNCHES["cholesky"] == 1
 
 
 @pytest.mark.gpu
