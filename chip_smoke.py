@@ -16,13 +16,18 @@ agree on a run (deterministic and GP), drives the elastic (EHL) paths
 elastic with frozen surrogates, the flagship rough-surface EHL GP
 configuration, adaptive dt on the device), checks the physics against
 the analytic Sommerfeld solution, and holds each kernel against its twin
-again on the main paths' 1024² inputs before timing both.  The blocked
-Cholesky and triangular solve (2k) are held bit for bit against their
-twins and within the reference's tolerance against torch.linalg at n
-256-2048, forward and backward; the per-step GP loop (3q) runs the GP
-example configurations non-silent, the 1D journal held in float64
-against the CPU and in float32 step by step against the same route on
-the twins; the half-space on cuFFT is held against its float64 CPU path
+again on the main paths' 1024² inputs before timing both.  The GP step
+kernels are held bit for bit against their twins (2g, 5), their means
+kernel alone for each feature and output count, and the written-out
+sqrt against sqrtf; phase 5 splits a K5 step into its four launches
+(by torch.profiler; where it keeps no device record of them this late
+in the run, in a new process: ``python3 chip_smoke.py --gp-profile``).
+The blocked Cholesky and triangular solve (2k) are held bit for bit
+against their twins and within the reference's tolerance against
+torch.linalg at n 256-2048, forward and backward; the per-step GP loop
+(3q) runs the GP example configurations non-silent, the 1D journal held
+in float64 against the CPU and in float32 step by step against the same
+route on the twins; the half-space on cuFFT is held against its float64 CPU path
 on FFT grids of 1024², 1026², 2050² and 2052² (3r).  The plain
 (uncompensated) whole-run kernels are held bit for bit against K1 and
 K3 launched once per step (2i), then drive bench.py's FV throughput run
@@ -272,6 +277,33 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+# torch.profiler keeps only the device events whose times, converted to
+# the host's clock, fall inside its capture window, and the card's clock
+# drifts from the host's as a process ages: on an H100, five 1024² GP
+# steps (a 3 ms window) lost 4 of 20 kernels after two minutes of work
+# and all of them after five.  Idle host time on both sides of the
+# profiled region keeps every kernel inside the window (all 20 after
+# nine minutes with 0.5 s each side).
+PROFILE_PAD_S = 0.5
+
+
+def profiled(fn, reps=1):
+    """torch.profiler (CPU and CUDA activity) over ``reps`` calls of
+    ``fn`` after one warm-up call, the calls between PROFILE_PAD_S seconds
+    of idle host time on each side; returns the profile."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    return prof
+
+
 def bound(ins, outs, cells, ops=OPS_PER_CELL):
     """(bound_ms, bound_by): each input read once and each output written
     once at the HBM rate, against ``ops`` per cell at the fp32 rate."""
@@ -416,7 +448,7 @@ db: {{init_size: 4, init_method: lhc, dtool_path: {dtool}{width}}}
 """
 GP_MAX_IT = 200
 GP_CAP = 64           # phase 5: training points per surrogate
-GP_CHECK_CAPS = (16, 256)
+GP_CHECK_CAPS = (16, 48, 128, 200, 256)
 # phase 3i: the GP journal of 3f at 128², 50 steps with active learning,
 # the kernel route against the plain GP step run in float64.  Its initial
 # samples spread the density by +-20 %, not 3f's +-1 %: from 3f's the
@@ -470,10 +502,11 @@ def check_p(label, out, ref):
     return float((out - ref).abs().max())
 
 
-def gp_check(label, p, cap, steps=0):
+def gp_check(label, p, cap, steps=0, exact=True):
     """One GP kernel step (or ``steps`` frozen steps) against its twin on
     a synthetic state of ``cap`` points per surrogate, scaled like the
-    Problem's database.  Returns the max abs error."""
+    Problem's database; with ``exact``, bit for bit (q and the pressure).
+    Returns the max abs error."""
     from gapflow_torch.ops import stencil as S
     from gapflow_torch.ops import stencil_gp as G
     from gapflow_torch.validate import gp_kernel_inputs
@@ -482,16 +515,76 @@ def gp_check(label, p, cap, steps=0):
     q, st, dt, ops, _ = gp_kernel_inputs(p, cap, ghosted=not periodic,
                                          db_scales=True)
     if steps:
-        return check(f"{label} gp_steps x{steps}",
-                     G.gp_steps(q, st, dt, cfg, ops, steps),
-                     G.gp_steps_ref(q, st, dt, cfg, ops, steps))
-    if not periodic:
-        return check(f"{label} gp_step_bc", G.gp_step_bc(q, st, dt, cfg, ops),
-                     G.gp_step_bc_ref(q, st, dt, cfg, ops))
-    (qk, pk), (qr, pr) = (G.gp_step(q, st, dt, cfg, ops),
-                          G.gp_step_ref(q, st, dt, cfg, ops))
-    return max(check(f"{label} gp_step", qk, qr),
-               check_p(f"{label} gp_step", pk, pr))
+        pairs = [(f"{label} gp_steps x{steps}",
+                  G.gp_steps(q, st, dt, cfg, ops, steps),
+                  G.gp_steps_ref(q, st, dt, cfg, ops, steps), None, None)]
+    else:
+        if periodic:
+            name = "gp_step"
+            (qk, pk), (qr, pr) = (G.gp_step(q, st, dt, cfg, ops),
+                                  G.gp_step_ref(q, st, dt, cfg, ops))
+        else:
+            name = "gp_step_bc"
+            (qk, pk), (qr, pr) = (G.gp_step_bc(q, st, dt, cfg, ops, True),
+                                  G.gp_step_bc_ref(q, st, dt, cfg, ops,
+                                                   True))
+        pairs = [(f"{label} {name}", qk, qr, pk, pr)]
+    err = 0.
+    for lab, out, ref, p_out, p_ref in pairs:
+        err = max(err, check(lab, out, ref))
+        if p_out is not None:
+            err = max(err, check_p(lab, p_out, p_ref))
+        for what, a, b in (("", out, ref), (" pressure", p_out, p_ref)):
+            if a is None:
+                continue
+            if exact:
+                check_equal(lab + what, a, b)
+            else:
+                print(f"  {lab}{what}: "
+                      f"{'equal' if torch.equal(a, b) else 'NOT equal'} bit "
+                      f"for bit")
+    return err
+
+
+def gp_fields_checks():
+    """Phase 2g: the means kernel alone against its twin, bit for bit,
+    for each body it compiles (d = 1-7 features, 1-2 outputs; 200 points
+    of synthetic surrogates on a perturbed journal state) and for three
+    surrogates in one launch; the written-out sqrt against sqrtf over
+    validate.sqrt_sweep."""
+    from gapflow_torch.ops import stencil_gp as G
+    from gapflow_torch.validate import (journal_problem, perturbed_state,
+                                        sqrt_sweep, synthetic_gp_ops)
+    from gapflow_torch.ops.stencil import interior_statics
+    pj = journal_problem(N_CHECK, N_CHECK, device=DEVICE)
+    pj._pre_run()
+    ps = perturbed_state(pj, seed=0, amp=0.01)
+    q = ps.q.float()[:, 1:-1, 1:-1].contiguous()
+    st = interior_statics(ps.topo, ps.extra, torch.float32, q.device)
+    for d in range(1, 8):
+        for n_out in (1, 2):
+            ops = synthetic_gp_ops([("z", d, n_out)], 200, 10 * d + n_out,
+                                   DEVICE)
+            check_equal(f"gp_fields d {d} n_out {n_out} cap 200",
+                        G.gp_fields(q, st, ops)["z"],
+                        G.gp_fields_ref(q, st, ops)["z"])
+    ops = synthetic_gp_ops([("z", 2, 1), ("x", 3, 2), ("y", 7, 2)], 48, 5,
+                           DEVICE)
+    got, ref = G.gp_fields(q, st, ops), G.gp_fields_ref(q, st, ops)
+    for k in got:
+        check_equal(f"gp_fields z, x, y together: {k}", got[k], ref[k])
+    inside, above = sqrt_sweep()
+    fast, ref = G.sqrt_pair(torch.as_tensor(inside, device=DEVICE))
+    check_equal(f"written-out sqrt vs sqrtf, {inside.size} arguments in "
+                f"[3e-14, 2^125]", fast, ref)
+    fast, ref = G.sqrt_pair(torch.as_tensor(above, device=DEVICE))
+    for arg in (fast, ref):
+        e = torch.exp(-arg)
+        if not (torch.isfinite(arg).all() and (e + arg * e == 0).all()):
+            raise RuntimeError("sqrt above 2^125: a Matern value is not 0")
+    print(f"  above 2^125 ({above.size} arguments): both sqrts finite, "
+          f"min {float(fast.min()):.4e} and {float(ref.min()):.4e}, Matern "
+          f"value 0 in both")
 
 
 def gp_problem(text, dtype=None):
@@ -765,6 +858,113 @@ def gp_bound(cells, ops):
     return max(parts[1:]), "operations", parts
 
 
+def gp_pair_ms(cells, ops):
+    """Bound of one pass's means (ms): for every surrogate and training
+    point 2d + 8 + 2 n_out FP32 operations, sqrt and exp among them at
+    the MUFU rate too, the larger of the two (gp_bound's pair part)."""
+    fp32 = mufu = 0
+    for dims, _, W, _, a in ops.models.values():
+        cap, d = W.shape
+        fp32 += cap * (2 * d + 8 + 2 * a.shape[1])
+        mufu += cap * 2
+    return max(cells * fp32 / FP32_OPS_PER_S, cells * mufu / MUFU_OPS_PER_S) \
+        * 1e3
+
+
+def gp_profile(q, st, dt, cfg, ops, reps=5):
+    """gp_step (need_p=False) under torch.profiler over ``reps`` steps,
+    its device time per step split by kernel (the means before each pass,
+    the two passes), each beside its bound: a pass's means at
+    gp_pair_ms, a pass's stencil at OPS_PER_CELL / 2 operations or its
+    bytes (state, statics and the fields read, its output written).
+    Raises if the steps called cudaLaunchKernel other than
+    ops.stencil_gp.kernel_launches times a step (the profiler's host-side
+    records of the runtime API).  The split needs the device record of
+    every kernel; where the profiler kept fewer, it says how many.
+    Returns whether it printed the split."""
+    from gapflow_torch.ops import stencil_gp as G
+    _, nx, ny = q.shape
+    cells = nx * ny
+    prof = profiled(lambda: G.gp_step(q, st, dt, cfg, ops, need_p=False),
+                    reps)
+    want = reps * G.kernel_launches(ops)
+    parts = {"gp_fields_kernel": "means (both passes)",
+             "gp_pass_kernel<0>": "pass d0 and predictor",
+             "gp_pass_kernel<1>": "pass d1 and average"}
+    planes = ops.planes()
+    stencil = max(cells * OPS_PER_CELL / 2 / FP32_OPS_PER_S,
+                  cells * 4 * (3 + 8 + planes + 3 + 3) / HBM_BYTES_PER_S) * 1e3
+    bounds = {"gp_fields_kernel": 2 * gp_pair_ms(cells, ops),
+              "gp_pass_kernel<0>": stencil, "gp_pass_kernel<1>": stencil}
+    launched, device, rows = 0, [], []
+    for e in prof.key_averages():
+        dev = getattr(e, "device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "cuda_time_total", 0.)
+        if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            launched += e.count
+        elif dev and not e.key.startswith("aten::"):
+            device.append(f"{e.key[:48]} x{e.count}")
+            key = next((k for k in parts if k in e.key), None)
+            if key:
+                rows.append((key, e.count, dev / 1e3 / reps))
+    if launched != want:
+        raise RuntimeError(f"{reps} gp_steps called cudaLaunchKernel "
+                           f"{launched} times, expected {want}")
+    seen = sum(count for _, count, _ in rows)
+    if seen == want:
+        for key, count, ms in rows:
+            print(f"  profile of gp_step at {nx}x{ny}, per step: "
+                  f"{parts[key]} x{count // reps}: {ms:.4f} ms, bound "
+                  f"{bounds[key]:.4f} ms")
+        print(f"  profile: {launched // reps} launches and kernels a step, "
+              f"{sum(ms for _, _, ms in rows):.4f} ms of device time")
+        return True
+    print(f"  profile: {launched // reps} launches a step; the profiler "
+          f"kept the device records of {seen} of the {want} GP kernels "
+          f"(device records kept: {', '.join(device) or 'none'})")
+    return False
+
+
+def gp_profile_child():
+    """``chip_smoke.py --gp-profile``: gp_profile in a process of its own
+    on phase 5's inputs but for the state (3f's journal after its pre-run,
+    GP_CAP points x 3 surrogates).  Exits 0 with the split printed, 3
+    where this profiler too kept too few device records."""
+    from gapflow_torch.ops import _build
+    from gapflow_torch.validate import gp_kernel_inputs
+    _build.load()
+    p = gp_problem(gp_journal_yaml(N))
+    q, st, dt, ops, _ = gp_kernel_inputs(p, GP_CAP, db_scales=True)
+    if not gp_profile(q, st, dt, p._solver_cfg, ops):
+        sys.exit(3)
+
+
+def gp_profile_split(q, st, dt, cfg, ops):
+    """Phase 5's profile of a K5 step: gp_profile here, which also checks
+    the launches; where this process's profiler kept too few device
+    records (late in this script it has kept none of the GP kernels'
+    while keeping K9's), gp_profile_child in a new process, and where
+    that kept too few too, the means' launch alone by events."""
+    from gapflow_torch.ops import stencil_gp as G
+    if gp_profile(q, st, dt, cfg, ops):
+        return
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--gp-profile"], capture_output=True, text=True,
+                         timeout=600)
+    for line in out.stdout.splitlines():
+        print(f"  new process: {line.strip()}")
+    if out.returncode == 0:
+        return
+    if out.returncode != 3:
+        raise RuntimeError(f"chip_smoke.py --gp-profile exited with "
+                           f"{out.returncode}: {out.stderr[-2000:]}")
+    _, nx, ny = q.shape
+    ms = time_ms(lambda: G.gp_fields(q, st, ops), 20)
+    print(f"  profile: by events, the means of one pass (gp_fields) "
+          f"{ms:.4f} ms, bound {gp_pair_ms(nx * ny, ops):.4f} ms")
+
+
 def gp_kernel_times(pj, pa, n=N, reps=20, plain_reps=3):
     """The three GP kernels at n x n on the main paths' final states (the
     journal of phase 3f for gp_step and gp_steps, the asperity contact of
@@ -777,7 +977,7 @@ def gp_kernel_times(pj, pa, n=N, reps=20, plain_reps=3):
     from gapflow_torch.validate import gp_kernel_inputs
     errs = {"gp_step": gp_check("K5 journal", pj, GP_CAP),
             "gp_steps": gp_check("K7 journal", pj, GP_CAP, steps=8),
-            "gp_step_bc": gp_check("K6 asperity", pa, GP_CAP)}
+            "gp_step_bc": gp_check("K6 asperity", pa, GP_CAP, exact=False)}
     times, bounds = {}, {}
     cfg = pj._solver_cfg
     q, st, dt, ops, _ = gp_kernel_inputs(pj, GP_CAP, db_scales=True)
@@ -789,6 +989,15 @@ def gp_kernel_times(pj, pa, n=N, reps=20, plain_reps=3):
         time_ms(lambda: G.gp_steps(q, st, dt, cfg, ops, reps), 1) / reps,
         time_ms(lambda: G.gp_steps_ref(q, st, dt, cfg, ops, 1), plain_reps))
     bounds["gp_step"] = bounds["gp_steps"] = gp_bound(n * n, ops)
+    gp_profile_split(q, st, dt, cfg, ops)
+    q2, st2, dt2, ops2, _ = gp_kernel_inputs(pj, 4 * GP_CAP, db_scales=True)
+    ms = time_ms(lambda: G.gp_step(q2, st2, dt2, cfg, ops2, need_p=False),
+                 reps)
+    b = gp_bound(n * n, ops2)
+    print(f"phase 5: gp_step {n}x{n} at {4 * GP_CAP} points x 3 surrogates "
+          f"(need_p=False): kernel {ms:.4f} ms/step, bound {b[0]:.4f} ms "
+          f"({b[1]}) = max(HBM {b[2][0]:.4f}, FP32 {b[2][1]:.4f}, MUFU "
+          f"{b[2][2]:.4f})")
     cfg = pa._solver_cfg
     q, st, dt, ops, _ = gp_kernel_inputs(pa, GP_CAP, ghosted=True,
                                          db_scales=True)
@@ -1656,16 +1865,10 @@ def k10_profile(C, A, L, B):
     Raises if the kernels the call launched differ from
     ``C.kernel_launches(n)``; where the profiler records no device time it
     says so."""
-    from torch.profiler import ProfilerActivity, profile
     n = A.shape[0]
     for label, fn in (("cholesky", lambda: C.cholesky_kernel(A)),
                       ("tril_solve", lambda: C.tril_solve_kernel(L, B))):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
+        prof = profiled(fn)
         rows = []
         for e in prof.key_averages():
             dev = getattr(e, "device_time_total", None)
@@ -2386,14 +2589,7 @@ def device_times(fn, reps):
     """torch.profiler's device time per call of ``fn`` over ``reps``
     calls, by kernel (and copy) name, in ms; empty where the profiler
     records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    prof = profiled(fn, reps)
     out = {}
     for e in prof.key_averages():
         dev = getattr(e, "device_time_total", None)
@@ -2606,6 +2802,9 @@ def main():
         print("  ptxas, K10 (cholesky.cu): " + "; ".join(
             ptxas_entries(text.split("== cholesky.cu")[-1]
                           .split("\n== ")[0])))
+        print("  ptxas, K5-K7 (stencil_gp.cu): " + "; ".join(
+            ptxas_entries(text.split("== stencil_gp.cu")[-1]
+                          .split("\n== ")[0])))
 
     # -- phase 2: kernels vs plain twins, float32 on the card --------------
     print("phase 2: kernel vs plain twin (256 x 256 perturbed journal)")
@@ -2688,8 +2887,11 @@ def main():
         err["mixed_step"] = max(err["mixed_step"], check(
             f"K4 {case} compensated loop x8 (ghosts included)", *loops))
 
-    print(f"phase 2g: GP kernels vs plain twins ({N_CHECK} x {N_CHECK} "
-          f"journal, synthetic surrogates, capacities {GP_CHECK_CAPS})")
+    print(f"phase 2g: GP kernels vs plain twins, bit for bit ({N_CHECK} x "
+          f"{N_CHECK} journal, synthetic surrogates, capacities "
+          f"{GP_CHECK_CAPS}; the means kernel alone per feature and output "
+          f"count; the written-out sqrt)")
+    gp_fields_checks()
     from gapflow_torch.validate import GP_CASES, gp_kernel_parity, gp_yaml
     err["gp_step"] = err["gp_step_bc"] = err["gp_steps"] = 0.
     edges = {"periodic": "", "dn_x": BC_CASES["dn_x"][0],
@@ -3097,4 +3299,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--gp-profile"]:
+        gp_profile_child()
+    else:
+        main()

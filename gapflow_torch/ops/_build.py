@@ -62,14 +62,18 @@ _SIGNATURES = {
     # dt, stream
     "gf_mixed_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                       _F, _P],
-    # q, st, out, p_out, nx, ny, st_ghosted, d0, iprm, fprm, bprm, bfprm,
+    # q, st, out, p_out, scratch, nx, ny, st_ghosted, d0, iprm, fprm,
+    # bprm, bfprm, meta, coef, data, dt, stream
+    "gf_gp_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                   _P, _P, _F, _P],
+    # q, st, buf0, buf1, scratch, nx, ny, n, d0, iprm, fprm, bprm, bfprm,
     # meta, coef, data, dt, stream
-    "gf_gp_step": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                   _P, _F, _P],
-    # q, st, buf0, buf1, nx, ny, n, d0, iprm, fprm, bprm, bfprm, meta,
-    # coef, data, dt, stream
-    "gf_gp_steps": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                    _P, _F, _P],
+    "gf_gp_steps": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                    _P, _P, _F, _P],
+    # q, st, out, nx, ny, meta, coef, data, stream
+    "gf_gp_fields": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+    # x, fast, ref, n, stream
+    "gf_sqrt_pair": [_P, _P, _P, _I, _P],
     # q, h, ls, px, py, out, nx, ny, d0, emit_delta, iprm, fprm, rdx2,
     # rdy2, dt, stream
     "gf_ehl_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _F,

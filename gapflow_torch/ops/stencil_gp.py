@@ -5,7 +5,11 @@ closes the balance equations with Gaussian-process surrogates: the GP
 pressure replaces the EOS, and the GP wall shear stresses replace the
 analytic ones in the momentum sources, as the additive correction
 ``S += ((up - su_det) - (lo - sl_det)) / h`` of the factored pass.  Three
-kernels, in ``csrc/stencil_gp.cu`` (one template body):
+wrappers over the kernels of ``csrc/stencil_gp.cu``, where a step is
+four launches in stream order: the used surrogates' means at every cell
+(``gp_fields_kernel``), pass d0 and the predictor, the means at the
+predictor, pass d1 and the average (``gp_pass_kernel``); without
+surrogates only the two passes:
 
 - :func:`gp_step` (replaces ``_kernel_fused_gp``): one step on the
   periodic interior state, returning the new state and the pass-2
@@ -15,8 +19,10 @@ kernels, in ``csrc/stencil_gp.cu`` (one template body):
   returning the new state (and, where asked, the ghost-inclusive pass-2
   pressure);
 - :func:`gp_steps` (replaces ``_kernel_gp_vmem`` and
-  ``_kernel_gp_hbm_loop``): ``n`` frozen-GP periodic steps, one launch per
-  step from a loop in C, ping-ponging two buffers.
+  ``_kernel_gp_hbm_loop``): ``n`` frozen-GP periodic steps from a loop in
+  C, ping-ponging two buffers.
+
+:func:`gp_fields` launches the means alone, on every cell of a state.
 
 Each GP mean is the Matern-3/2 sum of ``_gp_mean`` (the JAX package's
 readable formulation): per cell the scaled features ``x``, per training
@@ -29,8 +35,9 @@ padded training rows have alpha = 0 and add nothing.
 Beside each kernel is its plain torch twin (``*_ref``) with the same
 arithmetic in the same order (a Python loop over the training points).
 A wrapper takes the twin only for a tensor on the CPU; for a CUDA tensor
-it launches the kernel or raises.  Every launch adds one to its entry in
-:data:`LAUNCHES`.
+it launches the kernels or raises.  Every wrapper call adds one to its
+entry in :data:`LAUNCHES` (``gp_steps`` one per step);
+:func:`kernel_launches` gives the device launches of one step.
 """
 
 import math
@@ -52,7 +59,7 @@ N_FEAT = 7
 
 #: Kernel launches per wrapper since the last reset (the twins count
 #: nothing); ``gp_steps`` counts one per step it launches.
-LAUNCHES = {"gp_step": 0, "gp_step_bc": 0, "gp_steps": 0}
+LAUNCHES = {"gp_step": 0, "gp_step_bc": 0, "gp_steps": 0, "gp_fields": 0}
 
 
 def reset_launches():
@@ -112,12 +119,18 @@ class GPOps:
                             for k, (dims, *arrs) in self.models.items()}
         return self._floats
 
+    def planes(self):
+        """Field planes of the used surrogates' outputs (z 1, x 2, y 2)."""
+        return sum(self.models[k][4].shape[1] for k in KEYS
+                   if k in self.models)
+
     def device_args(self):
         """(meta int32, coef float32, data) for the CUDA entry points:
         per key z, x, y, ``meta`` holds used, d, cap, n_out, the offset
         of its rows in ``data`` and 7 feature indices; ``coef`` 7
         coefficients; ``data`` (float32, on the device) each surrogate's
-        (cap, d + 1 + n_out) rows [Wm2 row, w2, alpha row]."""
+        (cap, s) rows [Wm2 row, w2, alpha row, zeros], s = d + 1 + n_out
+        rounded up to a multiple of 4 (16-byte rows)."""
         if self._packed is None:
             meta = np.zeros((3, 12), dtype=np.int32)
             coef = np.zeros((3, N_FEAT), dtype=np.float32)
@@ -127,14 +140,23 @@ class GPOps:
                     continue
                 dims, c, Wm2, w2, alpha = self.models[key]
                 cap, d = Wm2.shape
-                r = torch.cat([Wm2, w2[:, None], alpha], dim=1).contiguous()
-                meta[m, :5] = [1, d, cap, alpha.shape[1], off]
+                n_out = alpha.shape[1]
+                if not (1 <= d <= N_FEAT and n_out in (1, 2) and
+                        all(0 <= i < N_FEAT for i in dims)):
+                    raise ValueError(f"the GP kernels take 1-{N_FEAT} of "
+                                     f"the built-in features and 1-2 "
+                                     f"outputs, got dims {dims}, {n_out} "
+                                     f"outputs ({key})")
+                pad = -(d + 1 + n_out) % 4
+                r = torch.cat([Wm2, w2[:, None], alpha,
+                               Wm2.new_zeros((cap, pad))], dim=1)
+                meta[m, :5] = [1, d, cap, n_out, off]
                 meta[m, 5:5 + d] = dims
                 coef[m, :d] = c.cpu().numpy()
                 rows.append(r.reshape(-1))
                 off += r.numel()
             data = (torch.cat(rows) if rows else
-                    torch.zeros(1, device=self.device)).to(torch.float32) \
+                    torch.zeros(4, device=self.device)).to(torch.float32) \
                 .contiguous()
             self._packed = (meta, coef, data)
         return self._packed
@@ -196,6 +218,16 @@ def _gp_mean(feats, model):
         for m, a in enumerate(alpha[j]):
             acc[m] = acc[m] + kj * a
     return acc
+
+
+def gp_fields_ref(q, statics, ops):
+    """Plain torch twin of :func:`gp_fields`: ``{key: (n_out, a, b)}``
+    means of each used surrogate at every cell of ``q`` (3, a, b) with
+    ``statics`` (8, a, b)."""
+    models = ops.floats()
+    feats = _features7(q[0], q[1], q[2], statics)
+    return {k: torch.stack(_gp_mean(feats, models[k])) for k in KEYS
+            if k in models}
 
 
 def _one_pass_gp(cfg, ops, q0, q1, q2, st, dt, d):
@@ -313,15 +345,28 @@ def _launch_args(q, cfg, ops):
             data.data_ptr())
 
 
+def _scratch(q, ops, g):
+    """The kernels' scratch for one step on the layout (g = 1:
+    ghost-inclusive): the predictor's 3 planes, then the fields' planes."""
+    _, nx, ny = q.shape
+    return torch.empty((3 + ops.planes(), nx + 2 * g, ny + 2 * g),
+                       dtype=q.dtype, device=q.device)
+
+
+def kernel_launches(ops):
+    """Device launches of one step: the two passes, and the means before
+    each where a surrogate is used."""
+    return 4 if ops.models else 2
+
+
 def gp_step(q_int, statics, dt, cfg, ops, need_p=True):
     """One GP-closed MacCormack step on the periodic interior state.
 
     ``q_int``: (3, nx, ny); ``statics``: (8, nx, ny) from
     :func:`ops.stencil.interior_statics`; ``ops`` from
     :func:`prep_gp_ops`.  Returns ``(q_new, p)``, ``p`` the pass-2
-    pressure (nx, ny), or None with ``need_p=False`` (the kernel variant
-    that writes no pressure).  CUDA tensors (float32) launch the kernel;
-    CPU tensors run :func:`gp_step_ref`."""
+    pressure (nx, ny), or None with ``need_p=False``.  CUDA tensors
+    (float32) launch the kernels; CPU tensors run :func:`gp_step_ref`."""
     if _on_cpu(q_int):
         return gp_step_ref(q_int, statics, dt, cfg, ops, need_p)
     if not gp_kernel_supported(cfg, *_dims_use(ops)):
@@ -331,12 +376,14 @@ def gp_step(q_int, statics, dt, cfg, ops, need_p=True):
     args = _launch_args(q_int, cfg, ops)
     out = torch.empty_like(q_int)
     p = torch.empty_like(q_int[0]) if need_p else None
+    scratch = _scratch(q_int, ops, 0)
     lib = _build.load()
     with torch.cuda.device(q_int.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gf_gp_step(q_int.data_ptr(), statics.data_ptr(),
                             out.data_ptr(), None if p is None else p.data_ptr(),
-                            nx, ny, 0, *args, float(dt), stream)
+                            scratch.data_ptr(), nx, ny, 0, *args, float(dt),
+                            stream)
     _build.check(lib, rc, "gf_gp_step")
     LAUNCHES["gp_step"] += 1
     return out, p
@@ -349,7 +396,7 @@ def gp_step_bc(q_int, statics_g, dt, cfg, ops, need_p=False):
     from :func:`ops.stencil.ghost_statics`.  Returns the new interior
     state, with ``need_p`` also the pass-2 pressure (nx+2, ny+2), its
     ghost ring evaluated on the refilled ghosts.  CUDA tensors (float32)
-    launch the kernel; CPU tensors run :func:`gp_step_bc_ref`."""
+    launch the kernels; CPU tensors run :func:`gp_step_bc_ref`."""
     if _on_cpu(q_int):
         return gp_step_bc_ref(q_int, statics_g, dt, cfg, ops, need_p)
     if not gp_bc_kernel_supported(cfg, *_dims_use(ops)):
@@ -360,13 +407,15 @@ def gp_step_bc(q_int, statics_g, dt, cfg, ops, need_p=False):
     out = torch.empty_like(q_int)
     p = (torch.empty((nx + 2, ny + 2), dtype=q_int.dtype,
                      device=q_int.device) if need_p else None)
+    scratch = _scratch(q_int, ops, 1)
     lib = _build.load()
     with torch.cuda.device(q_int.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gf_gp_step(q_int.data_ptr(), statics_g.data_ptr(),
                             out.data_ptr(),
-                            None if p is None else p.data_ptr(), nx, ny, 1,
-                            *args, float(dt), stream)
+                            None if p is None else p.data_ptr(),
+                            scratch.data_ptr(), nx, ny, 1, *args, float(dt),
+                            stream)
     _build.check(lib, rc, "gf_gp_step (bc)")
     LAUNCHES["gp_step_bc"] += 1
     return (out, p) if need_p else out
@@ -374,9 +423,9 @@ def gp_step_bc(q_int, statics_g, dt, cfg, ops, need_p=False):
 
 def gp_steps(q_int, statics, dt, cfg, ops, n):
     """``n`` frozen-GP periodic steps (:func:`gp_step` without the
-    pressure output), one launch per step from a loop in C that
-    ping-pongs two buffers.  The input is not modified.  CUDA tensors
-    (float32) launch the kernel; CPU tensors run :func:`gp_steps_ref`."""
+    pressure output) from a loop in C that ping-pongs two buffers.  The
+    input is not modified.  CUDA tensors (float32) launch the kernels;
+    CPU tensors run :func:`gp_steps_ref`."""
     if _on_cpu(q_int):
         return gp_steps_ref(q_int, statics, dt, cfg, ops, n)
     if not gp_kernel_supported(cfg, *_dims_use(ops)):
@@ -388,15 +437,63 @@ def gp_steps(q_int, statics, dt, cfg, ops, n):
     args = _launch_args(q_int, cfg, ops)
     bufs = torch.empty((2, 3, nx, ny), dtype=q_int.dtype,
                        device=q_int.device)
+    scratch = _scratch(q_int, ops, 0)
     lib = _build.load()
     with torch.cuda.device(q_int.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gf_gp_steps(q_int.data_ptr(), statics.data_ptr(),
-                             bufs[0].data_ptr(), bufs[1].data_ptr(), nx, ny,
-                             int(n), *args, float(dt), stream)
+                             bufs[0].data_ptr(), bufs[1].data_ptr(),
+                             scratch.data_ptr(), nx, ny, int(n), *args,
+                             float(dt), stream)
     _build.check(lib, rc, "gf_gp_steps")
     LAUNCHES["gp_steps"] += n
     return bufs[(n - 1) % 2]
+
+
+def gp_fields(q, statics, ops):
+    """The used surrogates' GP means at every cell of ``q`` (3, a, b)
+    with ``statics`` (8, a, b): ``{key: (n_out, a, b)}``, the kernel the
+    steps launch before each pass, on its own.  CUDA tensors (float32)
+    launch it; CPU tensors run :func:`gp_fields_ref`."""
+    if _on_cpu(q):
+        return gp_fields_ref(q, statics, ops)
+    _, a, b = q.shape
+    _check_tensors(q, (q, (3, a, b)), (statics, (N_STATIC, a, b)))
+    meta, coef, data = ops.device_args()
+    if data.device != q.device:
+        raise ValueError(f"GP operands on {data.device}, state on {q.device}")
+    out = torch.empty((ops.planes(), a, b), dtype=q.dtype, device=q.device)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gf_gp_fields(q.data_ptr(), statics.data_ptr(),
+                              out.data_ptr(), a, b, meta.ctypes.data,
+                              coef.ctypes.data, data.data_ptr(), stream)
+    _build.check(lib, rc, "gf_gp_fields")
+    LAUNCHES["gp_fields"] += 1
+    fields, i = {}, 0
+    for k in KEYS:
+        if k in ops.models:
+            m = ops.models[k][4].shape[1]
+            fields[k] = out[i:i + m]
+            i += m
+    return fields
+
+
+def sqrt_pair(x):
+    """The kernels' written-out sqrt and ``sqrtf`` of the float32 CUDA
+    tensor ``x``, computed on the card: (fast, sqrtf)."""
+    if _on_cpu(x):
+        raise ValueError("sqrt_pair runs on the card only")
+    x = x.contiguous()
+    fast, ref = torch.empty_like(x), torch.empty_like(x)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.gf_sqrt_pair(x.data_ptr(), fast.data_ptr(), ref.data_ptr(),
+                              x.numel(), torch.cuda.current_stream()
+                              .cuda_stream)
+    _build.check(lib, rc, "gf_sqrt_pair")
+    return fast, ref
 
 
 def _dims_use(ops):

@@ -300,6 +300,48 @@ def gp_kernel_inputs(problem, cap, seed=0, amp=1e-3, ghosted=False,
     return q, statics, problem.dt, prep_gp_ops(state, dims, use), state
 
 
+def synthetic_gp_ops(shapes, cap, seed, device):
+    """Kernel operands (``ops.stencil_gp.GPOps``) of one synthetic
+    surrogate per ``(key, d, n_out)`` of ``shapes``: d active features
+    drawn from the 7 built-ins, ``cap`` training points and unit-scale
+    length scales, scaled like a journal bearing's database, all from one
+    numpy generator, float32 on ``device``."""
+    from .ops.stencil_gp import GPOps
+    rng = np.random.default_rng(seed)
+    xscale = np.asarray(_JOURNAL_XSCALE, np.float64)
+    models = {}
+    for key, d, n_out in shapes:
+        dims = tuple(int(i) for i in rng.choice(7, size=d, replace=False))
+        ls = rng.uniform(0.6, 1.6, d)
+        Ws = np.sqrt(3.) * rng.uniform(0., 1.2, (cap, d)) / ls
+        coef = np.sqrt(3.) / ls / xscale[list(dims)]
+        alpha = rng.normal(size=(cap, n_out)) * 1e3
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=device)
+        models[key] = (dims, t(coef), t(-2. * Ws),
+                       t(np.sum(Ws * Ws, axis=1) + 3e-14), t(alpha))
+    return GPOps(models, device)
+
+
+def sqrt_sweep(seed=0, per_binade=4096):
+    """float32 arguments of the GP kernels' sqrt (numpy): ``(inside,
+    above)``, every binade of [3e-14, 2^125] with ``per_binade`` random
+    mantissas and both ends, where the written-out sqrt must equal
+    sqrtf; and (2^125, FLT_MAX] (three binades and FLT_MAX), where the
+    Matern value must be 0 for both."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.float32(3e-14), np.float32(2. ** 125)
+    parts = [np.array([lo, np.nextafter(lo, np.float32(1)), hi,
+                       np.nextafter(hi, np.float32(0))], np.float32)]
+    for e in range(-45, 128):
+        parts.append((rng.uniform(1., 2., per_binade) * 2. ** e)
+                     .astype(np.float32))
+    x = np.concatenate(parts + [np.array([np.finfo(np.float32).max])])
+    x = x[np.isfinite(x)]
+    return x[(x >= lo) & (x <= hi)], x[x > hi]
+
+
 def gp_kernel_parity(problem, cap=16, seed=0):
     """The GP kernel (:func:`ops.stencil_gp.gp_step`, or
     :func:`~ops.stencil_gp.gp_step_bc` on D/N edges) against the plain

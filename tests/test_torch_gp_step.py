@@ -179,8 +179,13 @@ def test_operands_match_jax(tmp_path):
         cap, d = W.shape
         assert list(meta[m, :5]) == [1, d, cap, a.shape[1], off]
         assert list(meta[m, 5:5 + d]) == list(dd)
-        rows = data[off:off + cap * (d + 1 + a.shape[1])].reshape(cap, -1)
+        # rows [Wm2, w2, alpha, zeros], padded to a multiple of 4 floats
+        width = -(-(d + 1 + a.shape[1]) // 4) * 4
+        rows = data[off:off + cap * width].reshape(cap, width)
+        assert torch.equal(rows[:, :d], W.float())
         assert torch.equal(rows[:, d], w2.float())
+        assert torch.equal(rows[:, d + 1:d + 1 + a.shape[1]], a.float())
+        assert not rows[:, d + 1 + a.shape[1]:].any()
         off += rows.numel()
     assert off == data.numel()
 
