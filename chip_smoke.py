@@ -33,7 +33,9 @@ on FFT grids of 1024², 1026², 2050² and 2052² (3r).  The plain
 K3 launched once per step (2i), then drive bench.py's FV throughput run
 (3o: the whole run in one launch at 512², temporally blocked sweeps at
 1024² and 2048², each beside K1 once per step) and the plain boundary
-paths (3p).  The shard kernel K9 is held bit for bit against its twin
+paths (3p).  The compensated sweeps (K2c, K3c), which carry the main
+paths 3-3c a chunk per C call, are held bit for bit against the
+one-step compensated kernels, q and q_lo (2i).  The shard kernel K9 is held bit for bit against its twin
 on every edge-flag pattern of a 2 x 2 and a 1 x 4 mesh (2s);
 ``Problem.run_steps_sharded`` drives the four-edge D/N journal at 1024²
 on 1 x 1, 2 x 2 and 2 x 4 meshes of cuda:0 shards and the periodic
@@ -97,6 +99,12 @@ MUFU_OPS_PER_S = 16 * 132 * 1.98e9
 # EOS/piezoviscosity up to ~30 per pass (thinning adds ~30), the one-sided
 # update ~18, two passes plus the average or the Kahan two-sum.
 OPS_PER_CELL = 300
+# The compensated sweeps' bound (K2c, K3c): the two-sum's increment and
+# carry take ~7 operations per component where the average takes 3, so
+# ~12 more per cell and step.  Their bytes are one sweep's over its k
+# steps: below the operations at the main paths' depth 3, above them at
+# depth 1 (shear thinning).
+COMP_OPS_PER_CELL = OPS_PER_CELL + 12
 # FP32 operations per cell of the statics the EHL kernel K8 forms from the
 # deformed gap (csrc/stencil_ehl.cu EhlStatics::load, once per cell): two
 # differences and their scalings, 4 Ls + H, 3 Ls + H, two divisions, 2 Ls,
@@ -230,6 +238,15 @@ def check(label, out, ref):
     return abs_err
 
 
+def once_n(once):
+    """A one-step compensated wrapper in the form ``f(q, lo, st, dt, cfg,
+    1)`` of :func:`check_comp_steps`."""
+    def run(q, lo, st, dt, cfg, n):
+        assert n == 1
+        return once(q, lo, st, dt, cfg)
+    return run
+
+
 def check_comp_steps(label, kernel, twin, q, lo, st, dt, cfg, n=8):
     """A compensated kernel held against its twin over ``n`` steps, each
     step launched from the twin's ``(q, q_lo)`` carry.  Where the model is
@@ -313,9 +330,10 @@ def bound(ins, outs, cells, ops=OPS_PER_CELL):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def drive(label, p, expect):
+def drive(label, p, expect, absent=()):
     """Problem.run() on one main path with the launch counts set to 0
-    just before it; checks the route, the launches and the state."""
+    just before it; checks the route, the launches (at least ``expect``,
+    none of ``absent``) and the state."""
     from gapflow_torch.ops import stencil as S
     n = p.grid["Nx"] * p.grid["Ny"]
     torch.cuda.synchronize()
@@ -335,18 +353,53 @@ def drive(label, p, expect):
     for k, least in expect.items():
         if launches[k] < least:
             raise RuntimeError(f"{label} missed a kernel: {launches}")
+    if any(launches[k] for k in absent):
+        raise RuntimeError(f"{label} launched one of {absent}: {launches}")
     if not (np.isfinite(p.q).all() and (p.q[0] > 0).all()):
         raise RuntimeError(f"{label}: non-finite q or rho <= 0")
     return launches
 
 
+def comp_sweep_row(label, steps, once, twin, q, st, dt, cfg, reps,
+                   plain_reps, chaotic=False):
+    """A compensated sweep at the main path's depth k from a nonzero carry
+    (8 one-step compensated steps first): bit for bit against k one-step
+    launches, against its twin (``chaotic``: over one step, as in
+    check_comp_steps), then timed per step over ``reps`` sweeps in one
+    call.  Returns (max abs err, (ms, twin ms), (bound, by)), the bound
+    per step at the deepest sweep the kernel takes."""
+    from gapflow_torch.ops import stencil as S
+    k = S._comp_k_steps(cfg)
+    lo = torch.zeros_like(q)
+    for _ in range(8):
+        q, lo = once(q, lo, st, dt, cfg)
+    out = steps(q, lo, st, dt, cfg, k)
+    ref = (q, lo)
+    for _ in range(k):
+        ref = once(*ref, st, dt, cfg)
+    check_bits(f"{label} k={k} vs {k} x one-step kernel", out, ref)
+    n = 1 if chaotic else k
+    err = check(f"{label} n={n} vs twin (q)",
+                steps(q, lo, st, dt, cfg, n)[0],
+                twin(q, lo, st, dt, cfg, n)[0])
+    ms = time_ms(lambda: steps(q, lo, st, dt, cfg, reps * k), 1) / (reps * k)
+    plain_ms = time_ms(lambda: twin(q, lo, st, dt, cfg, 1), plain_reps)
+    # the least the work needs: one sweep's bytes over the deepest sweep
+    # the kernel takes (_k_steps), whatever depth the main path chose
+    kmax = S._k_steps(cfg)
+    b = bound((q, lo, st), (q, lo), q[0].numel(), kmax * COMP_OPS_PER_CELL)
+    return err, (ms, plain_ms), (b[0] / kmax, b[1])
+
+
 def kernel_times(n=N, reps=200, plain_reps=20):
     """The five kernels at n x n on the inputs of the main paths (and the
     compensated K3 with thinning on the asperity contact): each held
-    against its plain twin, then timed.  Returns {kernel: max abs err},
-    {kernel: (ms, plain twin ms)} and {kernel: (bound_ms, bound_by)};
-    times are events over ``reps`` launches after a warm-up, the twins
-    over ``plain_reps``."""
+    against its plain twin, then timed; the compensated sweeps K2c/K3c
+    (the main paths' kernels) beside the one-step compensated kernels
+    (their witnesses).  Returns {kernel: max abs err}, {kernel: (ms,
+    plain twin ms)} and {kernel: (bound_ms, bound_by)}; times are events
+    over ``reps`` launches after a warm-up (the sweeps: ``reps`` sweeps
+    in one call), the twins over ``plain_reps``."""
     from gapflow_torch.ops import mixed_bc as M
     from gapflow_torch.ops import stencil as S
     from gapflow_torch.validate import MIXED_CASES
@@ -354,10 +407,7 @@ def kernel_times(n=N, reps=200, plain_reps=20):
     errs, times, bounds = {}, {}, {}
 
     def check_step(label, kernel, twin, *args):
-        return max(check(f"{label} emit_delta={d}",
-                         kernel(*args, emit_delta=d),
-                         twin(*args, emit_delta=d))
-                   for d in (False, True))
+        return check(label, kernel(*args), twin(*args))
 
     tp = journal(n, n, dt=1e-11)
     cfg = tp._solver_cfg
@@ -366,14 +416,18 @@ def kernel_times(n=N, reps=200, plain_reps=20):
     errs["fused_step"] = check_step("K1 journal", S.fused_step,
                                     S.fused_step_ref, q, st, dt, cfg)
     errs["comp_step"] = check_comp_steps(
-        "K2 journal comp_steps", S.comp_steps, S.comp_steps_ref,
-        q, lo, st, dt, cfg)
+        "K2 journal comp_step_once", once_n(S.comp_step_once),
+        S.comp_steps_ref, q, lo, st, dt, cfg)
     times["fused_step"] = (
         time_ms(lambda: S.fused_step(q, st, dt, cfg), reps),
         time_ms(lambda: S.fused_step_ref(q, st, dt, cfg), plain_reps))
     times["comp_step"] = (
-        time_ms(lambda: S.comp_steps(q, lo, st, dt, cfg, reps), 1) / reps,
+        time_ms(lambda: S.comp_step_once(q, lo, st, dt, cfg), reps),
         time_ms(lambda: S.comp_steps_ref(q, lo, st, dt, cfg, 1), plain_reps))
+    errs["comp_sweep"], times["comp_sweep"], bounds["comp_sweep"] = \
+        comp_sweep_row("K2c journal comp_steps", S.comp_steps,
+                       S.comp_step_once, S.comp_steps_ref, q, st, dt, cfg,
+                       reps, plain_reps)
     bounds["fused_step"] = bound((q, st), (q,), cells)
     bounds["comp_step"] = bound((q, lo, st), (q, lo), cells)
 
@@ -384,15 +438,20 @@ def kernel_times(n=N, reps=200, plain_reps=20):
     errs["fused_step_bc"] = check_step("K3 inclined", S.fused_step_bc,
                                        S.fused_step_bc_ref, q, st, dt, cfg)
     errs["comp_step_bc"] = check_comp_steps(
-        "K3 inclined comp_steps_bc", S.comp_steps_bc, S.comp_steps_bc_ref,
-        q, lo, st, dt, cfg)
+        "K3 inclined comp_step_bc_once", once_n(S.comp_step_bc_once),
+        S.comp_steps_bc_ref, q, lo, st, dt, cfg)
     times["fused_step_bc"] = (
         time_ms(lambda: S.fused_step_bc(q, st, dt, cfg), reps),
         time_ms(lambda: S.fused_step_bc_ref(q, st, dt, cfg), plain_reps))
     times["comp_step_bc"] = (
-        time_ms(lambda: S.comp_steps_bc(q, lo, st, dt, cfg, reps), 1) / reps,
+        time_ms(lambda: S.comp_step_bc_once(q, lo, st, dt, cfg), reps),
         time_ms(lambda: S.comp_steps_bc_ref(q, lo, st, dt, cfg, 1),
                 plain_reps))
+    errs["comp_sweep_bc"], times["comp_sweep_bc"], \
+        bounds["comp_sweep_bc"] = comp_sweep_row(
+            "K3c inclined comp_steps_bc", S.comp_steps_bc,
+            S.comp_step_bc_once, S.comp_steps_bc_ref, q, st, dt, cfg, reps,
+            plain_reps)
     bounds["fused_step_bc"] = bound((q, st), (q,), cells)
     bounds["comp_step_bc"] = bound((q, lo, st), (q, lo), cells)
 
@@ -405,20 +464,28 @@ def kernel_times(n=N, reps=200, plain_reps=20):
         "K3 asperity Eyring", S.fused_step_bc, S.fused_step_bc_ref,
         q, st, dt, cfg))
     errs["comp_step_bc"] = max(errs["comp_step_bc"], check_comp_steps(
-        "K3 asperity Eyring comp_steps_bc", S.comp_steps_bc,
-        S.comp_steps_bc_ref, q, lo, st, dt, cfg))
+        "K3 asperity Eyring comp_step_bc_once",
+        once_n(S.comp_step_bc_once), S.comp_steps_bc_ref, q, lo, st, dt,
+        cfg))
     times["comp_step_bc (Eyring)"] = (
-        time_ms(lambda: S.comp_steps_bc(q, lo, st, dt, cfg, reps), 1) / reps,
+        time_ms(lambda: S.comp_step_bc_once(q, lo, st, dt, cfg), reps),
         time_ms(lambda: S.comp_steps_bc_ref(q, lo, st, dt, cfg, 1),
                 plain_reps))
     bounds["comp_step_bc (Eyring)"] = bound((q, lo, st), (q, lo), cells)
+    e, times["comp_sweep_bc (Eyring)"], bounds["comp_sweep_bc (Eyring)"] = \
+        comp_sweep_row("K3c asperity Eyring comp_steps_bc", S.comp_steps_bc,
+                       S.comp_step_bc_once, S.comp_steps_bc_ref, q, st, dt,
+                       cfg, reps, plain_reps, chaotic=True)
+    errs["comp_sweep_bc"] = max(errs["comp_sweep_bc"], e)
 
     tm = journal(n, n, MIXED_CASES["both_mixed"], dt=2e-11)
     cfg = tm._solver_cfg
     q_g, st, gx, gy, dt = mixed_inputs(tm, amp=0.01)
-    errs["mixed_step"] = check_step("K4 both_mixed", M.mixed_step,
-                                    M.mixed_step_ref, q_g, st, gx, gy, dt,
-                                    cfg)
+    errs["mixed_step"] = max(
+        check(f"K4 both_mixed emit_delta={d}",
+              M.mixed_step(q_g, st, gx, gy, dt, cfg, emit_delta=d),
+              M.mixed_step_ref(q_g, st, gx, gy, dt, cfg, emit_delta=d))
+        for d in (False, True))
     times["mixed_step"] = (
         time_ms(lambda: M.mixed_step(q_g, st, gx, gy, dt, cfg), reps),
         time_ms(lambda: M.mixed_step_ref(q_g, st, gx, gy, dt, cfg),
@@ -1508,6 +1575,105 @@ def plain_kernel_checks(err):
                 S.plain_steps_bc_ref(q, st, dt, cfg, k)))
 
 
+def check_bits(label, out, ref):
+    """A compensated sweep against the one-step kernel: q and q_lo equal
+    bit for bit, else raise."""
+    torch.cuda.synchronize()
+    for name, a, b in (("q", out[0], ref[0]), ("q_lo", out[1], ref[1])):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"{label}: {name} differs, max abs diff "
+                               f"{float((a - b).abs().max()):.3e}")
+    print(f"  {label}: q and q_lo equal bit for bit")
+
+
+def comp_sweep_checks(err):
+    """Phase 2i: the compensated sweeps (comp_steps, comp_steps_bc) against
+    the one-step compensated kernels launched once per step, bit for bit,
+    q and q_lo: from a nonzero carry (8 one-step compensated steps first),
+    k = 1..KMAX steps in one launch, and 2 KMAX + 1 steps (sweeps and a
+    remainder) at every depth k (through the C sweep entry) and at the
+    main path's (through the wrapper), on the periodic journal at
+    N_CHECK² and on a ragged 40 x 72 grid, every BC_CASES layout, the
+    Eyring asperity (KMAX = 2), and on 1D grids (1024 x 1: periodic,
+    dn_x, dn_x_barus_eyring), where a tile's window wraps onto its one
+    column; each against its twin too (the asperity over one step
+    only).  The C entry refuses a sweep depth outside 1..KMAX, and the
+    refusal raises.  Returns the one-step kernels' launches."""
+    from gapflow_torch.ops import stencil as S
+    from gapflow_torch.validate import BC_CASES
+    err["comp_sweep"] = err.get("comp_sweep", 0.)
+    err["comp_sweep_bc"] = err.get("comp_sweep_bc", 0.)
+    cases = [("journal", journal(N_CHECK, N_CHECK), False),
+             ("journal 40x72", journal(40, 72), False)]
+    # dt 2e-12 for Barus + Eyring: at 2e-11 its state goes non-finite
+    # within the 13 compensated steps here (at the twelfth; the twin alike)
+    cases += [(case, journal(N_CHECK, N_CHECK, grid, props,
+                             dt=2e-12 if "barus" in case else 2e-11), True)
+              for case, (grid, props) in BC_CASES.items()]
+    cases.append(("asperity Eyring", problem(asperity_yaml(N_CHECK, 1000)),
+                  True))
+    cases.append(("journal 1024x1", journal(1024, 1), False))
+    cases += [(f"{case} 1024x1", journal(1024, 1, *BC_CASES[case],
+                                         dt=2e-12 if "barus" in case
+                                         else 2e-11), True)
+              for case in ("dn_x", "dn_x_barus_eyring")]
+    witness = {"comp_step": 0, "comp_step_bc": 0}
+    for label, p, bc in cases:
+        cfg = p._solver_cfg
+        q, st, dt = kernel_inputs(p, amp=0.01, ghosted=bc)
+        once = S.comp_step_bc_once if bc else S.comp_step_once
+        steps = S.comp_steps_bc if bc else S.comp_steps
+        twin = S.comp_steps_bc_ref if bc else S.comp_steps_ref
+        key = "comp_sweep_bc" if bc else "comp_sweep"
+        entry = "gf_comp_sweeps_bc" if bc else "gf_comp_sweeps"
+        extra = S._bc_params(cfg) if bc else ()
+        kmax = S._k_steps(cfg)
+        reset_all()
+        lo = torch.zeros_like(q)
+        for _ in range(8):
+            q, lo = once(q, lo, st, dt, cfg)
+        runs = [(k, k) for k in range(1, kmax + 1)]
+        runs += [(2 * kmax + 1, k) for k in (*range(1, kmax + 1), None)]
+        for n, k in runs:
+            ref = (q, lo)
+            for _ in range(n):
+                ref = once(*ref, st, dt, cfg)
+            before = S.LAUNCHES[key]
+            out = (steps(q, lo, st, dt, cfg, n) if k is None else
+                   S._comp_sweeps(entry, key, q, lo, st, dt, cfg, n, k,
+                                  *extra))
+            sweeps = S.LAUNCHES[key] - before
+            depth = S._comp_k_steps(cfg) if k is None else k
+            if sweeps != -(-n // depth):
+                raise RuntimeError(f"2i {label} n={n}: {sweeps} sweeps")
+            check_bits(f"{key} {label} n={n} k={depth} ({sweeps} sweeps) "
+                       f"vs {n} x one-step kernel", out, ref)
+            tq = twin(q, lo, st, dt, cfg, n)[0]
+            if label == "asperity Eyring" and n > 1:
+                # BWR + Eyring amplifies a last-bit difference by orders of
+                # magnitude a step: runs of more than one step from the
+                # same carry go their own way (check_comp_steps)
+                print(f"  {key} {label} n={n} vs twin (q), on their own: "
+                      f"max scaled diff {errors(label, out[0], tq)[0]:.3e}")
+            else:
+                err[key] = max(err[key], check(
+                    f"{key} {label} n={n} vs twin (q)", out[0], tq))
+        for k in witness:
+            witness[k] += S.LAUNCHES[k]
+        before = S.LAUNCHES[key]
+        for k in (0, kmax + 1):
+            try:
+                S._comp_sweeps(entry, key, q, lo, st, dt, cfg, 4, k, *extra)
+            except RuntimeError as e:
+                print(f"  {entry} with k = {k} refused, as it must be: {e}")
+            else:
+                raise RuntimeError(f"2i {label}: {entry} ran k = {k}")
+        if S.LAUNCHES[key] != before:
+            raise RuntimeError(f"2i {label}: a refused sweep was counted")
+    torch.cuda.synchronize()
+    return witness
+
+
 def k1_run_steps(p, n):
     """run_steps_fast's body with K1 launched once per step in place of
     the plain route (the loop the port ran before the plain kernels), for
@@ -1574,8 +1740,10 @@ def fv_throughput(launches):
                 launches[key] = v
         p1 = journal(n, n, dt=1e-11)
         p1._pre_run()
-        timed_runs(f"{n}x{n} K1 once per step", p1, k1_run_steps, FV_STEPS,
-                   {"fused_step": FV_STEPS})
+        _, got = timed_runs(f"{n}x{n} K1 once per step", p1, k1_run_steps,
+                            FV_STEPS, {"fused_step": FV_STEPS})
+        if n == N:          # no main path launches K1: its record run
+            launches["fused_step"] = got["fused_step"]
         diff = kernel_vs_plain_err(torch.as_tensor(pk.q),
                                    torch.as_tensor(p1.q))
         print(f"  {n}x{n}: after {4 * FV_STEPS} steps, plain route vs K1 "
@@ -1604,6 +1772,7 @@ def plain_bc_paths(launches):
                         pb, plain, 1002,
                         {"plain_steps_bc": 250, "fused_step_bc": 2})
     launches["plain_steps_bc"] = got["plain_steps_bc"]
+    launches["fused_step_bc"] = got["fused_step_bc"]
     pa = problem(asperity_yaml(N, 1000000, adaptive=0))
     pa._pre_run()
     timed_runs(f"asperity {N}x{N}, D/N on four edges, Eyring, 1001 steps",
@@ -2794,6 +2963,12 @@ def main():
     log = _build.library_path().with_suffix(".log")
     if log.is_file():       # absent where the library was built earlier
         text = log.read_text()
+        print("  ptxas, the k-step body and the one-step compensated "
+              "kernels: " + "; ".join(
+                  entry for src in ("stencil.cu", "stencil_bc.cu")
+                  for entry in ptxas_entries(
+                      text.split(f"== {src}")[-1].split("\n== ")[0])
+                  if re.search("multi_step|comp_step|,2>", entry)))
         shard = text.split("== stencil_shard.cu")[-1]
         print("  ptxas, K9 (stencil_shard.cu): " + "; ".join(
             line.split("ptxas info    : ")[-1].strip()
@@ -2812,17 +2987,18 @@ def main():
     cfg = p._solver_cfg
     q, st, dt = kernel_inputs(p, amp=0.01)
     err = {}
-    err["fused_step"] = max(
-        check(f"K1 fused_step emit_delta={d}",
-              S.fused_step(q, st, dt, cfg, emit_delta=d),
-              S.fused_step_ref(q, st, dt, cfg, emit_delta=d))
-        for d in (False, True))
+    err["fused_step"] = check("K1 fused_step", S.fused_step(q, st, dt, cfg),
+                              S.fused_step_ref(q, st, dt, cfg))
     lo = torch.zeros_like(q)
     qk, lk = S.comp_steps(q, lo, st, dt, cfg, 8)
     qr, lr = S.comp_steps_ref(q, lo, st, dt, cfg, 8)
-    err["comp_step"] = check("K2 comp_steps x8 (q)", qk, qr)
+    err["comp_sweep"] = check("K2c comp_steps x8, two sweeps (q)", qk, qr)
     if not torch.isfinite(lk).all():
-        raise RuntimeError("K2: non-finite Kahan carry")
+        raise RuntimeError("K2c: non-finite Kahan carry")
+    qk, lk = q, lo
+    for _ in range(8):
+        qk, lk = S.comp_step_once(qk, lk, st, dt, cfg)
+    err["comp_step"] = check("K2 comp_step_once x8 (q)", qk, qr)
     print("phase 2b: one K1 step per EOS / piezo model (64 x 128)")
     for label, props in _MODEL_CASES:
         pm = journal(64, 128, props=props)
@@ -2836,23 +3012,26 @@ def main():
     # the 8 compensated steps (twin and kernel alike)
     print("phase 2c: K3 vs plain twin (256 x 256, amplitude 0.01, dt "
           "2e-11)")
-    err["fused_step_bc"] = err["comp_step_bc"] = 0.
+    err["fused_step_bc"] = err["comp_step_bc"] = err["comp_sweep_bc"] = 0.
     for case, (grid, props) in BC_CASES.items():
         pb = journal(N_CHECK, N_CHECK, grid, props, dt=2e-11)
         cfg = pb._solver_cfg
         q, st, dt = kernel_inputs(pb, amp=0.01, ghosted=True)
-        for d in (False, True):
-            err["fused_step_bc"] = max(err["fused_step_bc"], check(
-                f"K3 {case} emit_delta={d}",
-                S.fused_step_bc(q, st, dt, cfg, emit_delta=d),
-                S.fused_step_bc_ref(q, st, dt, cfg, emit_delta=d)))
+        err["fused_step_bc"] = max(err["fused_step_bc"], check(
+            f"K3 {case}", S.fused_step_bc(q, st, dt, cfg),
+            S.fused_step_bc_ref(q, st, dt, cfg)))
         lo = torch.zeros_like(q)
         qk, lk = S.comp_steps_bc(q, lo, st, dt, cfg, 8)
         qr, _ = S.comp_steps_bc_ref(q, lo, st, dt, cfg, 8)
-        err["comp_step_bc"] = max(err["comp_step_bc"], check(
-            f"K3 {case} comp_steps_bc x8 (q)", qk, qr))
+        err["comp_sweep_bc"] = max(err["comp_sweep_bc"], check(
+            f"K3c {case} comp_steps_bc x8, sweeps (q)", qk, qr))
         if not torch.isfinite(lk).all():
-            raise RuntimeError("K3: non-finite Kahan carry")
+            raise RuntimeError("K3c: non-finite Kahan carry")
+        qk, lk = q, lo
+        for _ in range(8):
+            qk, lk = S.comp_step_bc_once(qk, lk, st, dt, cfg)
+        err["comp_step_bc"] = max(err["comp_step_bc"], check(
+            f"K3 {case} comp_step_bc_once x8 (q)", qk, qr))
     for case in ("dn_x", "dn_x_barus_eyring"):       # 1D: Ny = 1
         pb = journal(1024, 1, *BC_CASES[case])
         q, st, dt = kernel_inputs(pb, amp=0.01, ghosted=True)
@@ -2946,6 +3125,11 @@ def main():
           f"step and vs their twins ({N_CHECK} x {N_CHECK} journal, "
           f"BC_CASES, amplitude 0.01)")
     plain_kernel_checks(err)
+    print(f"phase 2i: compensated sweeps vs the one-step compensated "
+          f"kernels launched once per step, q and q_lo bit for bit, from a "
+          f"nonzero carry ({N_CHECK} x {N_CHECK} and 40 x 72 journal, "
+          f"BC_CASES, Eyring asperity), and vs their twins")
+    witness_launches = comp_sweep_checks(err)
 
     print(f"phase 2s: K9 vs plain twin ({N_CHECK} x {N_CHECK} perturbed "
           f"four-edge D/N journal as one shard block with its serial "
@@ -2967,20 +3151,26 @@ def main():
     n, max_it = N, MAX_IT
     print(f"phase 3: Problem.run(), silent float32 journal {n} x {n}, "
           f"max_it {max_it}")
+    # chunks of 1024 steps and one of 2: 4 x 342 sweeps of 3 steps (the
+    # last of each chunk 1 step) and one of 2; no one-step kernel
+    one_step = ("comp_step", "comp_step_bc", "fused_step", "fused_step_bc")
     launches = drive("journal", journal(n, n, dt=1e-11, max_it=max_it),
-                     {"comp_step": 4096, "fused_step": 1})
+                     {"comp_sweep": 1369}, one_step)
+    launches["comp_step"] = witness_launches["comp_step"]
 
     print(f"phase 3b: Problem.run(), silent float32 inclined slider {n} x "
           f"{n}, D/N x edges, PL, adaptive dt, max_it {max_it}")
     lb = drive("inclined", problem(inclined_yaml(n, max_it)),
-               {"comp_step_bc": 4096, "fused_step_bc": 1})
-    launches["comp_step_bc"] = lb["comp_step_bc"]
-    launches["fused_step_bc"] = lb["fused_step_bc"]
+               {"comp_sweep_bc": 1369}, one_step)
+    launches["comp_sweep_bc"] = lb["comp_sweep_bc"]
+    launches["comp_step_bc"] = witness_launches["comp_step_bc"]
 
     print(f"phase 3c: Problem.run(), silent float32 asperity contact {n} x "
           f"{n}, D/N on four edges, BWR, Eyring thinning, max_it 1026")
     pa = problem(asperity_yaml(n, 1026))
-    drive("asperity", pa, {"comp_step_bc": 1024})
+    # with thinning the compensated sweeps are one step deep
+    la = drive("asperity", pa, {"comp_sweep_bc": 1026}, one_step)
+    launches["comp_sweep_bc"] += la["comp_sweep_bc"]
     from gapflow_torch.core.step import effective_viscosity
     from gapflow_torch.models.eos import eos_pressure
     qa = torch.as_tensor(pa.q, dtype=torch.float32, device=DEVICE)
@@ -3012,7 +3202,7 @@ def main():
     runs = {}
     for route, comp, expect in (
             ("run_compiled_fast", False, {"plain_steps_bc": 50}),
-            ("run_compiled_fast", True, {"comp_step_bc": 200}),
+            ("run_compiled_fast", True, {"comp_sweep_bc": 67}),
             ("run_compiled", None, {})):
         pr = problem(inclined_yaml(128, 200, adaptive=0, dt=1e-9))
         pr._pre_run()
@@ -3248,20 +3438,25 @@ def main():
               f"({bounds[k][1]}){parts}")
 
     sources = {k: "gapflow_torch/csrc/stencil.cu"
-               for k in ("fused_step", "comp_step")}
+               for k in ("fused_step", "comp_step", "comp_sweep")}
     sources.update({k: "gapflow_torch/csrc/stencil_plain.cu"
                     for k in ("plain_steps", "plain_steps_rem", "plain_run")})
     sources.update({k: "gapflow_torch/csrc/stencil_bc.cu"
-                    for k in ("fused_step_bc", "comp_step_bc", "mixed_step",
+                    for k in ("fused_step_bc", "comp_step_bc",
+                              "comp_sweep_bc", "mixed_step",
                               "plain_steps_bc")})
     sources.update({k: "gapflow_torch/csrc/stencil_gp.cu"
                     for k in ("gp_step", "gp_step_bc", "gp_steps")})
     sources.update({k: "gapflow_torch/csrc/stencil_ehl.cu"
                     for k in ("ehl_step", "ehl_comp_step")})
     sources["shard_step"] = "gapflow_torch/csrc/stencil_shard.cu"
+    # the compensated sweeps replace K2c and K3c on the main paths; the
+    # one-step compensated kernels stay listed as their witnesses (2i)
     replaces = {"fused_step": "gapflow_tpu/ops/stencil.py:897",
+                "comp_sweep": "gapflow_tpu/ops/stencil.py:681",
                 "comp_step": "gapflow_tpu/ops/stencil.py:681",
                 "fused_step_bc": "gapflow_tpu/ops/stencil.py:370",
+                "comp_sweep_bc": "gapflow_tpu/ops/stencil.py:759",
                 "comp_step_bc": "gapflow_tpu/ops/stencil.py:759",
                 "mixed_step": "gapflow_tpu/ops/mixed_bc.py:246",
                 "gp_step": "gapflow_tpu/ops/stencil_gp.py:269",

@@ -3,20 +3,25 @@
 // Replaces the two Pallas TPU kernels on the deterministic f32 path of
 // gapflow_tpu/ops/stencil.py:
 //   - gf_fused_step  <- _kernel_fused (+ _one_pass_fused): one step, writing
-//     the new interior state or, in emit_delta form, the increment
-//     ((q* - q) - u) / 2 for compensated accumulation;
-//   - gf_comp_step   <- _kernel_fused_hbm_loop with _advance_comp: one
-//     Kahan-compensated step on the (q, q_lo) carry,
+//     the new interior state;
+//   - gf_comp_sweeps <- _kernel_fused_hbm_loop with _advance_comp (K2c):
+//     n Kahan-compensated steps on the (q, q_lo) carry,
 //       delta = ((q* - q) - u) / 2;  y = delta + lo;  t = q + y;
 //       lo' = y - (t - q),
-//     in the same order as _advance_comp.  The Python wrapper loops the
-//     launches and ping-pongs two buffer pairs, as the TPU kernel
-//     ping-pongs outA/outB.
+//     in the same order as _advance_comp, in one C call: sweeps of k
+//     (1..4; 3 on the main path, ops/stencil.py _comp_k_steps) steps
+//     temporally blocked on chip (the compensated form of
+//     stencil_multi.cuh) and one sweep of n mod k, ping-ponging two
+//     buffer pairs as the TPU kernel ping-pongs outA/outB.
+// A third entry, gf_comp_step, is one compensated step on this file's
+// tile body: the witness that the sweeps equal k launches of it bit for
+// bit (tests/test_torch_gpu.py, chip_smoke.py phase 2i); no main path
+// launches it.
 //
-// What bounds it: memory bytes.  Per cell and step the kernel reads about
-// 11 floats (3 of q, 8 precomputed statics; 14 with the Kahan carry) and
-// writes 3 (6 with the carry) against ~250 flops, far below the card's
-// flop/byte balance.  The tile is what keeps the rest out of device
+// What bounds the one-step kernels: memory bytes.  Per cell and step
+// the kernel reads about 11 floats (3 of q, 8 precomputed statics; 14
+// with the Kahan carry) and writes 3 (6 with the carry) against ~250
+// flops, far below the card's flop/byte balance.  The tile is what keeps the rest out of device
 // memory: each 256-thread block owns a TX x TY tile of interior cells,
 // reads q and the statics once for the tile plus a 2-cell periodic halo
 // (wrapped in x AND y by index arithmetic; the TPU kernel used a
@@ -29,11 +34,9 @@
 // The tile body (step_tile) is in stencil_tile.cuh, shared with the EHL
 // step of stencil_ehl.cu, which derives the statics in-kernel.
 //
-// Temporal blocking (K_MULTI = 4 steps per launch, as the TPU kernel)
-// exists for the plain loop only (stencil_plain.cu, stencil_multi.cuh);
-// the compensated K2 still advances one step per launch.  Not done yet
-// (later performance work): K2 on that design, capturing the launch loop
-// in a CUDA graph, and vectorised 16-byte loads.
+// The sweeps are bound by FP32 work instead (stencil_multi.cuh).  Not
+// done yet (later performance work): capturing the chunk loop in a CUDA
+// graph, and vectorised 16-byte loads.
 //
 // Build (ops/_build.py): nvcc -gencode arch=compute_90a,code=sm_90a -O3
 //        --fmad=false -shared -Xcompiler -fPIC.  No --use_fast_math: it
@@ -41,17 +44,17 @@
 //        break the Kahan carry's sub-ulp increments.  --fmad=false keeps
 //        the rounding op for op equal to the plain torch twin.
 
+#include "stencil_multi.cuh"
 #include "stencil_tile.cuh"
 
 namespace {
 
-template <int MODE>
 __global__ void __launch_bounds__(TX * TY)
 fused_step_kernel(const float* __restrict__ q, const float* __restrict__ st,
                   float* __restrict__ out, int nx, int ny, int d0, float dt,
                   Params P) {
     const ArrayStatics S{st, (size_t)nx * ny, ny};
-    step_tile<MODE>(q, nullptr, S, out, nullptr, nx, ny, blockIdx.y * TX,
+    step_tile<STATE>(q, nullptr, S, out, nullptr, nx, ny, blockIdx.y * TX,
                     blockIdx.x * TY, d0, dt, P);
 }
 
@@ -73,18 +76,12 @@ comp_step_kernel(const float* __restrict__ q, const float* __restrict__ lo,
 // cudaGetLastError() after its launch.
 
 extern "C" int gf_fused_step(const float* q, const float* st, float* out,
-                             int nx, int ny, int d0, int emit_delta,
-                             const int* iprm, const float* fprm, float dt,
-                             void* stream) {
+                             int nx, int ny, int d0, const int* iprm,
+                             const float* fprm, float dt, void* stream) {
     const Params P = make_params(iprm, fprm);
-    const dim3 block(TY, TX);
-    cudaStream_t s = (cudaStream_t)stream;
-    if (emit_delta)
-        fused_step_kernel<DELTA><<<grid_for(nx, ny), block, 0, s>>>(
-            q, st, out, nx, ny, d0, dt, P);
-    else
-        fused_step_kernel<STATE><<<grid_for(nx, ny), block, 0, s>>>(
-            q, st, out, nx, ny, d0, dt, P);
+    fused_step_kernel<<<grid_for(nx, ny), dim3(TY, TX), 0,
+                        (cudaStream_t)stream>>>(q, st, out, nx, ny, d0, dt,
+                                                P);
     return (int)cudaGetLastError();
 }
 
@@ -97,6 +94,20 @@ extern "C" int gf_comp_step(const float* q, const float* lo, const float* st,
                        (cudaStream_t)stream>>>(q, lo, st, q_out, lo_out,
                                                nx, ny, d0, dt, P);
     return (int)cudaGetLastError();
+}
+
+// n compensated periodic steps in sweeps of k (1..4) and one of n mod k
+// (stencil_multi.cuh comp_sweeps); A, B (6, nx, ny) device buffers, q
+// then q_lo; the result is in A for an odd number of sweeps, else in B.
+extern "C" int gf_comp_sweeps(const float* q, const float* lo,
+                              const float* st, float* A, float* B, int nx,
+                              int ny, int n, int k, int d0, const int* iprm,
+                              const float* fprm, float dt, void* stream) {
+    const Params P = make_params(iprm, fprm);
+    const Bc bc{};
+    const Thin T{};
+    return comp_sweeps<false, false>(q, lo, st, A, B, nx, ny, n, k, d0, dt,
+                                     P, bc, T, stream);
 }
 
 extern "C" const char* gf_error_string(int code) {

@@ -4,19 +4,24 @@
 // Replaces three Pallas TPU kernels of gapflow_tpu/ops:
 //   - gf_fused_step_bc <- stencil.py _kernel_fused_bc: one step on the
 //     interior state with in-kernel ghost refills between the passes,
-//     writing the new state or, in emit_delta form, ((q* - q) - u) / 2;
-//   - gf_comp_step_bc  <- stencil.py _kernel_fused_bc_hbm with nch = 6: one
-//     Kahan-compensated step on the interior (q, q_lo) carry, the ghosts
-//     rebuilt from the interior every step;
+//     writing the new state;
+//   - gf_comp_step_bc: one Kahan-compensated step on the interior
+//     (q, q_lo) carry, the ghosts rebuilt from the interior every step:
+//     the witness of gf_comp_sweeps_bc below (no main path launches it);
 //   - gf_mixed_step    <- mixed_bc.py _kernel_fused_bc_mixed: one step on
 //     the ghost-inclusive state of a mixed-edge run, whose periodic
 //     components on a mixed edge take given pass-1 ghost lines.
-// One template body serves all three.  A fourth entry,
+// One template body serves all three.  Two more entries run the k-step
+// body of stencil_multi.cuh on this file's edge codes:
 //   - gf_plain_steps_bc <- stencil.py _kernel_fused_bc_hbm with nch = 3:
 //     k plain steps (4, or 2 with shear thinning) in one launch,
 //     temporally blocked on chip, the ghosts refilled in the block after
-//     every pass and every average,
-// runs the k-step body of stencil_multi.cuh on this file's edge codes.
+//     every pass and every average;
+//   - gf_comp_sweeps_bc <- stencil.py _kernel_fused_bc_hbm with nch = 6
+//     (K3c): n Kahan-compensated steps on the interior (q, q_lo) carry in
+//     one C call, sweeps of k steps (3 on the main path, 1 with shear
+//     thinning: ops/stencil.py _comp_k_steps) and one of n mod k, equal
+//     bit for bit to n launches of gf_comp_step_bc.
 //
 // Coordinates are ghost-inclusive: X in [-1, nx], Y in [-1, ny], with the
 // ghost rows X = -1, nx and ghost columns Y = -1, ny of the reference
@@ -43,9 +48,10 @@
 // centred inside, one-sided at a ghost slot, whether its value is a
 // wrap or a D/N fill), so R = 2 and H = 4.
 //
-// What bounds it: memory bytes, as K1 (3 + 8 floats read, 3 written per
-// cell; 6 and 6 with the Kahan carry).  The ghost refills are perimeter
-// work; a block on a periodic edge recomputes the far q* line it needs.
+// What bounds the one-step kernels: memory bytes, as K1 (3 + 8 floats
+// read, 3 written per cell; 6 and 6 with the Kahan carry).  The ghost
+// refills are perimeter work; a block on a periodic edge recomputes the
+// far q* line it needs.
 //
 // Build: see stencil.cu and ops/_build.py (same flags, --fmad=false).
 
@@ -433,21 +439,16 @@ int launch(const Ctx& g, const Bc& bc, const Params& P, const Thin& T,
 // after its launch.
 
 extern "C" int gf_fused_step_bc(const float* q, const float* st, float* out,
-                                int nx, int ny, int d0, int emit_delta,
-                                const int* iprm, const float* fprm,
-                                const int* bprm, const float* bfprm,
-                                float dt, void* stream) {
+                                int nx, int ny, int d0, const int* iprm,
+                                const float* fprm, const int* bprm,
+                                const float* bfprm, float dt, void* stream) {
     const Params P = make_params(iprm, fprm);
     Bc bc;
     Thin T;
     make_bc(bprm, bfprm, &bc, &T);
     const Ctx g = make_ctx(q, st, nullptr, nullptr, nx, ny, bc);
-    if (T.model != 0)
-        return emit_delta
-            ? launch<false, true, DELTA>(g, bc, P, T, nullptr, out, nullptr, d0, dt, stream)
-            : launch<false, true, STATE>(g, bc, P, T, nullptr, out, nullptr, d0, dt, stream);
-    return emit_delta
-        ? launch<false, false, DELTA>(g, bc, P, T, nullptr, out, nullptr, d0, dt, stream)
+    return T.model != 0
+        ? launch<false, true, STATE>(g, bc, P, T, nullptr, out, nullptr, d0, dt, stream)
         : launch<false, false, STATE>(g, bc, P, T, nullptr, out, nullptr, d0, dt, stream);
 }
 
@@ -496,4 +497,25 @@ extern "C" int gf_plain_steps_bc(const float* q, const float* st, float* out,
     return T.model != 0
         ? launch_multi<true, true>(q, st, out, nx, ny, k, d0, dt, P, bc, T, stream)
         : launch_multi<true, false>(q, st, out, nx, ny, k, d0, dt, P, bc, T, stream);
+}
+
+// n compensated steps on D/N, thinning or periodic edges in sweeps of k
+// (1..4, or 1..2 with shear thinning) and one of n mod k; q/lo (3, nx,
+// ny), st (8, nx+2, ny+2), A/B (6, nx, ny): q, then q_lo; the result is
+// in A for an odd number of sweeps, else in B.
+extern "C" int gf_comp_sweeps_bc(const float* q, const float* lo,
+                                 const float* st, float* A, float* B, int nx,
+                                 int ny, int n, int k, int d0,
+                                 const int* iprm, const float* fprm,
+                                 const int* bprm, const float* bfprm,
+                                 float dt, void* stream) {
+    const Params P = make_params(iprm, fprm);
+    Bc bc;
+    Thin T;
+    make_bc(bprm, bfprm, &bc, &T);
+    return T.model != 0
+        ? comp_sweeps<true, true>(q, lo, st, A, B, nx, ny, n, k, d0, dt, P,
+                                  bc, T, stream)
+        : comp_sweeps<true, false>(q, lo, st, A, B, nx, ny, n, k, d0, dt, P,
+                                   bc, T, stream);
 }

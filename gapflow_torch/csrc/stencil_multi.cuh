@@ -1,7 +1,8 @@
 // k MacCormack steps per launch (temporal blocking), float32: the body of
 // the plain whole-run kernels K2p/Ke (stencil_plain.cu: periodic edges,
 // the interior statics) and K3p (stencil_bc.cu: Dirichlet/Neumann edges
-// and shear thinning, the ghost-inclusive statics).
+// and shear thinning, the ghost-inclusive statics), and, with COMP, of
+// the Kahan-compensated sweeps K2c (stencil.cu) and K3c (stencil_bc.cu).
 //
 // A block owns a TX x TY tile of interior cells.  It loads the state on
 // the tile plus a halo of h = k * SHRINK cells per side into shared
@@ -30,22 +31,36 @@
 //     between tiles do.
 // Every flux, update and average is the one-step kernels' own
 // arithmetic, in their order, so k steps of a launch round exactly like
-// k launches of K1 (K2p) or K3 (K3p).
+// k launches of K1 (K2p) or K3 (K3p), and the compensated form like k
+// launches of K2 or K3 in their Kahan mode.
+//
+// The compensated form (COMP) carries the Kahan low part q_lo of the
+// (q, q_lo) carry in three more shared channels.  It is loaded on the
+// whole window like q: a halo cell's carry sets that cell's q after the
+// first step, and so every later step of the cells it feeds.  The
+// average becomes the two-sum of the increment, in the order of the TPU
+// kernel's _advance_comp and of the one-step kernels,
+//     delta = ((q* - q) - u) / 2;  y = delta + lo;  t = q + y;
+//     lo = y - (t - q);  q = t,
+// and the tile's q and q_lo are written.  A D/N ghost is refilled from
+// q alone; its q_lo is never read (the average skips ghost slots).
 //
 // What bounds it: on the H100 the one-step kernels are bound by memory
-// bytes (11 floats in, 3 out per cell and step); four steps per launch
-// cut those to a quarter, which leaves FP32 work (~300 operations per
-// cell and step) as the bound.  The recomputed halo is the price: with
-// a 32 x 32 tile and k = 4 the window is 40 x 40, and the passes of a
-// launch evaluate about 1.3x the useful cells (16 x 32 and k = 2 with
-// thinning: 28 x 44).  The state, predictor, fluxes and sources of the
-// window live in dynamic shared memory (14 floats per cell, 15 with the
-// pressure of thinning: 89.6 KB at k = 4, 73.9 KB at k = 2 with
-// thinning); the statics are read through the read-only cache (__ldg)
-// rather than staged, which keeps two blocks per SM.  Per-cell integer
-// work is kept off the passes: the wrapped or clamped row and column of
-// every window cell come from four small index tables, and a cell's
-// window row from a float reciprocal, not an integer division.
+// bytes (11 floats in, 3 out per cell and step; 14 and 6 with the
+// carry); k steps per launch cut those to 1/k, which leaves FP32 work
+// (~300 operations per cell and step, ~12 more for the two-sum) as the
+// bound.  The recomputed halo is the price: with a 32 x 32 tile and
+// k = 4 the window is 40 x 40, and the passes of a launch evaluate
+// about 1.3x the useful cells (16 x 32 and k = 2 with thinning:
+// 28 x 44).  The state, predictor, fluxes and sources of the window
+// live in dynamic shared memory (14 floats per cell, 15 with the
+// pressure of thinning, 3 more with the carry: 98.2 KB for the
+// compensated 38 x 38 window of k = 3, 104 KB with thinning at k = 1,
+// so two blocks still fit an SM's 228 KB); the statics are read through
+// the read-only cache (__ldg) rather than staged.  Per-cell integer work
+// is kept off the passes: the wrapped or clamped row and column of every window cell come from four small
+// index tables, and a cell's window row from a float reciprocal, not an
+// integer division.
 
 #pragma once
 
@@ -57,13 +72,20 @@ namespace {
 // and 16 x 64 tiles on 256 and 512 threads at 1024² on the H100
 // (PERF.md): 32 x 32 on 512 threads without thinning, 16 x 32 on
 // 256 with it (62 registers: 512 threads would leave one block per SM).
-template <bool THIN>
+// The compensated form takes 32 x 32 on 512 threads with and without
+// thinning (timed against 16 x 32 on 256 in tests/comp_sweep_bench.py,
+// PERF.md): with thinning its sweeps are one step deep (ops/stencil.py
+// _comp_k_steps), whose window of 18 floats a cell still leaves two
+// blocks per SM.
+template <bool THIN, bool COMP = false>
 struct MultiGeo {
-    static constexpr int TX = THIN ? 16 : 32;   // tile rows (x)
-    static constexpr int TY = 32;               // tile columns (y)
-    static constexpr int THREADS = THIN ? 256 : 512;
+    static constexpr int TX = THIN && !COMP ? 16 : 32;  // tile rows (x)
+    static constexpr int TY = 32;                       // tile columns (y)
+    static constexpr int THREADS = THIN && !COMP ? 256 : 512;
     static constexpr int SHRINK = THIN ? 3 : 1; // halo a step consumes
-    static constexpr int NCH = THIN ? 15 : 14;  // shared floats per cell
+    // shared floats per cell: state, predictor, fluxes, sources, the
+    // pressure of thinning, the Kahan carry
+    static constexpr int NCH = (THIN ? 15 : 14) + (COMP ? 3 : 0);
     static constexpr int KMAX = THIN ? 2 : 4;   // steps per launch at most
 
     // the window's floats and its four index tables
@@ -81,18 +103,22 @@ __device__ __forceinline__ bool seam(int i, int n, int d) {
 
 // k steps of the tile (blockIdx.y, blockIdx.x).  BC: the ghost-inclusive
 // layout and edge codes of K3 (st is (8, nx+2, ny+2)); else all edges
-// periodic and st is (8, nx, ny).  q, out: (3, nx, ny).
-template <bool BC, bool THIN>
-__global__ void __launch_bounds__(MultiGeo<THIN>::THREADS)
-multi_step_kernel(const float* __restrict__ q, const float* __restrict__ st,
-                  float* __restrict__ out, int nx, int ny, int k, int d0,
+// periodic and st is (8, nx, ny).  q, out: (3, nx, ny); with COMP also
+// the carry lo_in, lo_out: (3, nx, ny) (else null).
+template <bool BC, bool THIN, bool COMP>
+__global__ void __launch_bounds__(MultiGeo<THIN, COMP>::THREADS)
+multi_step_kernel(const float* __restrict__ q,
+                  const float* __restrict__ lo_in,
+                  const float* __restrict__ st, float* __restrict__ out,
+                  float* __restrict__ lo_out, int nx, int ny, int k, int d0,
                   float dt, Params P, Bc bc, Thin T) {
-    using G = MultiGeo<THIN>;
+    using G = MultiGeo<THIN, COMP>;
     extern __shared__ float sm[];
     const int h = k * G::SHRINK;
     const int WX = G::TX + 2 * h, WY = G::TY + 2 * h, NW = WX * WY;
     float* qa = sm;              // [3][NW] state, averaged in place
-    float* pd = qa + 3 * NW;     // [3][NW] predictor q*
+    float* lo = qa + 3 * NW;     // [3][NW] Kahan carry q_lo (COMP)
+    float* pd = lo + (COMP ? 3 * NW : 0);   // [3][NW] predictor q*
     float* F = pd + 3 * NW;      // [5][NW] fluxes of the current pass
     float* S = F + 5 * NW;       // [3][NW] sources of the current pass
     float* pp = S + 3 * NW;      // [NW]    pressure of the pass (THIN)
@@ -154,13 +180,15 @@ multi_step_kernel(const float* __restrict__ q, const float* __restrict__ st,
         yhi = min(yhi, ny - wy);
     }
 
-    // the state on the window; ghosts from the edge formulas (x, then y)
+    // the state on the window; ghosts from the edge formulas (x, then y).
+    // The carry is loaded as read: at a ghost slot it is dead.
     each(xlo, xhi, ylo, yhi, [&](int li, int lj) {
         const int X = wx + li, Y = wy + lj;
         const size_t g = (size_t)ix[li] * ny + iy[lj];
         const int w = li * WY + lj;
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
+            if (COMP) lo[c * NW + w] = lo_in[c * plane + g];
             float v = q[c * plane + g];
             if (xghost(X)) {
                 const int e = X < 0 ? 0 : 1;
@@ -256,7 +284,9 @@ multi_step_kernel(const float* __restrict__ q, const float* __restrict__ st,
         __syncthreads();
 
         // the update u = dt * (ddx(Fx) + ddy(Fy) - S) at interior cells:
-        // predictor q* = q - u, or the average ((q* - u) + q) / 2
+        // predictor q* = q - u, then the average ((q* - u) + q) / 2 or,
+        // with COMP, the two-sum of the increment ((q* - q) - u) / 2
+        // into (q, q_lo)
         const int uxlo = fxlo + (d > 0), uxhi = fxhi - (d < 0);
         const int uylo = fylo + (d > 0), uyhi = fyhi - (d < 0);
         each(uxlo, uxhi, uylo, uyhi, [&](int li, int lj) {
@@ -290,10 +320,18 @@ multi_step_kernel(const float* __restrict__ q, const float* __restrict__ st,
 #pragma unroll
             for (int c = 0; c < 3; ++c) {
                 const int i = c * NW + w;
-                if (second)
-                    qa[i] = ((pd[i] - u[c]) + qa[i]) / 2.f;
-                else
+                if (!second) {
                     pd[i] = qa[i] - u[c];
+                } else if (COMP) {
+                    const float q0 = qa[i];
+                    const float delta = ((pd[i] - q0) - u[c]) / 2.f;
+                    const float y = delta + lo[i];
+                    const float t = q0 + y;
+                    lo[i] = y - (t - q0);
+                    qa[i] = t;
+                } else {
+                    qa[i] = ((pd[i] - u[c]) + qa[i]) / 2.f;
+                }
             }
         });
         __syncthreads();
@@ -345,11 +383,15 @@ multi_step_kernel(const float* __restrict__ q, const float* __restrict__ st,
         const size_t g = (size_t)X * ny + Y;
         const int w = li * WY + lj;
 #pragma unroll
-        for (int c = 0; c < 3; ++c) out[c * plane + g] = qa[c * NW + w];
+        for (int c = 0; c < 3; ++c) {
+            out[c * plane + g] = qa[c * NW + w];
+            if (COMP) lo_out[c * plane + g] = lo[c * NW + w];
+        }
     });
 }
 
-// Launch k steps of the template on stream s; returns the CUDA error.
+// Launch k plain steps of the template on stream s; returns the CUDA
+// error.
 template <bool BC, bool THIN>
 int launch_multi(const float* q, const float* st, float* out, int nx, int ny,
                  int k, int d0, float dt, const Params& P, const Bc& bc,
@@ -358,14 +400,49 @@ int launch_multi(const float* q, const float* st, float* out, int nx, int ny,
     if (k < 1 || k > G::KMAX) return (int)cudaErrorInvalidValue;
     const size_t bytes = G::smem_bytes(k);
     cudaError_t e = cudaFuncSetAttribute(
-        multi_step_kernel<BC, THIN>,
+        multi_step_kernel<BC, THIN, false>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((ny + G::TY - 1) / G::TY, (nx + G::TX - 1) / G::TX);
-    multi_step_kernel<BC, THIN><<<grid, G::THREADS, bytes,
-                                  (cudaStream_t)s>>>(q, st, out, nx, ny, k,
-                                                     d0, dt, P, bc, T);
+    multi_step_kernel<BC, THIN, false><<<grid, G::THREADS, bytes,
+                                         (cudaStream_t)s>>>(
+        q, nullptr, st, out, nullptr, nx, ny, k, d0, dt, P, bc, T);
     return (int)cudaGetLastError();
+}
+
+// n compensated steps on stream s: n / k sweeps of k steps and one of
+// n mod k, each a launch of the template that reads one (q, q_lo) pair
+// and writes the other.  The first sweep reads (q, lo); sweep i writes
+// A (i even) or B (i odd), each 6 planes: q, then q_lo.  The result is
+// in A for an odd number of sweeps, else in B.  The shared-memory
+// attribute is set once, for the largest window.  Returns the first
+// CUDA error, before any later launch.
+template <bool BC, bool THIN>
+int comp_sweeps(const float* q, const float* lo, const float* st, float* A,
+                float* B, int nx, int ny, int n, int k, int d0, float dt,
+                const Params& P, const Bc& bc, const Thin& T, void* s) {
+    using G = MultiGeo<THIN, true>;
+    if (k < 1 || k > G::KMAX || n < 1) return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(
+        multi_step_kernel<BC, THIN, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::smem_bytes(k));
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((ny + G::TY - 1) / G::TY, (nx + G::TX - 1) / G::TX);
+    const size_t plane3 = (size_t)3 * nx * ny;
+    for (int done = 0, i = 0; done < n; ++i) {
+        const int kk = n - done < k ? n - done : k;
+        float* dst = i % 2 ? B : A;
+        multi_step_kernel<BC, THIN, true><<<grid, G::THREADS,
+                                            G::smem_bytes(kk),
+                                            (cudaStream_t)s>>>(
+            q, lo, st, dst, dst + plane3, nx, ny, kk, d0, dt, P, bc, T);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+        q = dst;
+        lo = dst + plane3;
+        done += kk;
+    }
+    return 0;
 }
 
 }  // namespace

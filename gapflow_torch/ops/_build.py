@@ -41,10 +41,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, st, out, nx, ny, d0, emit_delta, iprm, fprm, dt, stream
-    "gf_fused_step": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _P],
+    # q, st, out, nx, ny, d0, iprm, fprm, dt, stream
+    "gf_fused_step": [_P, _P, _P, _I, _I, _I, _P, _P, _F, _P],
     # q, lo, st, q_out, lo_out, nx, ny, d0, iprm, fprm, dt, stream
     "gf_comp_step": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _P],
+    # q, lo, st, A, B, nx, ny, n, k, d0, iprm, fprm, dt, stream
+    "gf_comp_sweeps": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _F,
+                       _P],
     # q, st, out, nx, ny, k, d0, iprm, fprm, dt, stream
     "gf_plain_steps": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _P],
     # q, st, A, B, nx, ny, n, d0, iprm, fprm, dt, blocks, stream
@@ -52,12 +55,16 @@ _SIGNATURES = {
     # q, st, out, nx, ny, k, d0, iprm, fprm, bprm, bfprm, dt, stream
     "gf_plain_steps_bc": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _F,
                           _P],
-    # q, st, out, nx, ny, d0, emit_delta, iprm, fprm, bprm, bfprm, dt, stream
-    "gf_fused_step_bc": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _F, _P],
+    # q, st, out, nx, ny, d0, iprm, fprm, bprm, bfprm, dt, stream
+    "gf_fused_step_bc": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _F, _P],
     # q, lo, st, q_out, lo_out, nx, ny, d0, iprm, fprm, bprm, bfprm, dt,
     # stream
     "gf_comp_step_bc": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _F,
                         _P],
+    # q, lo, st, A, B, nx, ny, n, k, d0, iprm, fprm, bprm, bfprm, dt,
+    # stream
+    "gf_comp_sweeps_bc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                          _P, _F, _P],
     # qg, st, gx, gy, out, nx, ny, d0, emit_delta, iprm, fprm, bprm, bfprm,
     # dt, stream
     "gf_mixed_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,

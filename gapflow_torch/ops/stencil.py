@@ -1,17 +1,21 @@
 """Fused MacCormack steps: CUDA kernels, their plain twins, drivers.
 
-Counterpart of :mod:`gapflow_tpu.ops.stencil`.  Ten kernels, in
+Counterpart of :mod:`gapflow_tpu.ops.stencil`.  Twelve kernels, in
 ``csrc/stencil.cu`` (periodic), ``csrc/stencil_plain.cu`` (the plain
 periodic loop), ``csrc/stencil_bc.cu`` (boundary),
 ``csrc/stencil_ehl.cu`` (periodic, statics from the deformed gap) and
 ``csrc/stencil_shard.cu`` (one shard of a sharded run):
 
 - :func:`fused_step` (replaces ``_kernel_fused``): one periodic step on
-  the interior ``(3, nx, ny)`` state, returning the new state or, with
-  ``emit_delta``, the increment ``((q* - q) - u) / 2``;
+  the interior ``(3, nx, ny)`` state, returning the new state;
 - :func:`comp_steps` (replaces ``_kernel_fused_hbm_loop`` with
   ``_advance_comp``): ``n`` Kahan-compensated periodic steps on the
-  ``(q, q_lo)`` carry, one launch per step, ping-ponging two buffer pairs;
+  ``(q, q_lo)`` carry in one C call, sweeps of :func:`_comp_k_steps`
+  steps temporally blocked on chip and one sweep of the remainder,
+  ping-ponging two buffer pairs;
+- :func:`comp_step_once`: one compensated periodic step, the witness
+  that :func:`comp_steps` equals ``n`` launches of it bit for bit (on
+  no main path);
 - :func:`plain_steps` (replaces ``_kernel_fused_hbm_loop`` with
   ``_advance_plain`` and, with ``k = n mod K_MULTI``, ``_kernel_fused_ext``):
   ``k <= K_MULTI`` plain periodic steps in one launch, each tile advanced
@@ -25,7 +29,11 @@ periodic loop), ``csrc/stencil_bc.cu`` (boundary),
   built from the interior by the edge formulas and refilled between the
   passes;
 - :func:`comp_steps_bc` (replaces ``_kernel_fused_bc_hbm``, ``nch = 6``):
-  its compensated form, one launch per step;
+  its compensated form, ``n`` steps in one C call, sweeps of
+  :func:`_comp_k_steps` steps and one of the remainder, the ghosts
+  refilled in the block after every pass and average;
+- :func:`comp_step_bc_once`: one compensated boundary step, the witness
+  of :func:`comp_steps_bc` (on no main path);
 - :func:`plain_steps_bc` (replaces ``_kernel_fused_bc_hbm``, ``nch = 3``):
   ``k <= _k_steps(cfg)`` plain boundary steps in one launch, temporally
   blocked, the ghosts refilled in the block after every pass and
@@ -75,20 +83,24 @@ from ..models.closures_opt import (N_STATIC, fused_pass_top_pre,
 from ..models.eos import _PRESSURE, _bwr_terms, eos_pressure, true_div
 from ..models.viscosity import _PIEZO, _THINNING
 
-#: Steps per sweep of the compensated loop: full sweeps go through
-#: :func:`comp_steps`, the remainder through :func:`fused_step` with
-#: ``emit_delta`` (the loop structure of the JAX package, whose sweep
-#: kernel advances K_MULTI steps per launch).
+#: Steps per sweep of the plain temporally blocked kernels on periodic
+#: edges (the JAX package's sweep kernel advances K_MULTI steps per
+#: launch), and the most any sweep takes; halved by shear thinning
+#: (:func:`_k_steps`).
 K_MULTI = 4
 
 #: Kernel launches per wrapper since the last reset (the plain twins
 #: count nothing).  ``mixed_step`` counts :func:`ops.mixed_bc.mixed_step`;
 #: :func:`plain_steps` counts a sweep (``k = K_MULTI``) as ``plain_steps``
-#: and a remainder launch as ``plain_steps_rem``.
-LAUNCHES = {"fused_step": 0, "comp_step": 0, "plain_steps": 0,
-            "plain_steps_rem": 0, "plain_run": 0, "fused_step_bc": 0,
-            "comp_step_bc": 0, "plain_steps_bc": 0, "mixed_step": 0,
-            "ehl_step": 0, "ehl_comp_step": 0, "shard_step": 0}
+#: and a remainder launch as ``plain_steps_rem``; :func:`comp_steps` and
+#: :func:`comp_steps_bc` count every launch of their C call, the
+#: remainder sweep included, as ``comp_sweep`` and ``comp_sweep_bc``;
+#: ``comp_step`` and ``comp_step_bc`` count the one-step witnesses.
+LAUNCHES = {"fused_step": 0, "comp_step": 0, "comp_sweep": 0,
+            "plain_steps": 0, "plain_steps_rem": 0, "plain_run": 0,
+            "fused_step_bc": 0, "comp_step_bc": 0, "comp_sweep_bc": 0,
+            "plain_steps_bc": 0, "mixed_step": 0, "ehl_step": 0,
+            "ehl_comp_step": 0, "shard_step": 0}
 
 #: L2 cache of an H100 (bytes), the size :func:`_plain_run_fits` assumes
 #: for a tensor on the CPU; on a CUDA device the device's own is read.
@@ -135,10 +147,22 @@ def _periodic_kernel_ok(cfg):
 
 
 def _k_steps(cfg):
-    """Steps per sweep of the compensated loop: the TPU kernel's
-    temporal-blocking depth, halved by shear thinning (its viscosity reads
-    the pressure at +-1, doubling the halo each step consumes)."""
+    """Steps per sweep of the plain temporally blocked kernels, and the
+    most a sweep takes: the TPU kernel's depth, halved by shear thinning
+    (its viscosity reads the pressure at +-1, doubling the halo each
+    step consumes)."""
     return K_MULTI // 2 if cfg.thinning is not None else K_MULTI
+
+
+def _comp_k_steps(cfg):
+    """Steps per sweep of the compensated loop (:func:`comp_steps`,
+    :func:`comp_steps_bc`), the fastest depth timed at 1024² on the H100
+    (``tests/comp_sweep_bench.py``, PERF.md): 3 without shear thinning,
+    whose deeper window recomputes more halo than the saved traffic
+    pays for; 1 with it, the window of a 32 x 32 tile two steps deep
+    leaving one block per SM.  Any depth gives the same result bit for
+    bit."""
+    return 1 if cfg.thinning is not None else 3
 
 
 # ---------------------------------------------------------------------------
@@ -444,17 +468,15 @@ def _on_cpu(q):
     return False
 
 
-def fused_step(q_int, statics, dt, cfg, emit_delta=False):
+def fused_step(q_int, statics, dt, cfg):
     """One fused periodic MacCormack step on the interior state.
 
     ``q_int``: (3, nx, ny); ``statics``: (8, nx, ny) from
-    :func:`interior_statics`.  Returns the new state, or with
-    ``emit_delta`` the increment ``((q* - q) - u) / 2`` whose Kahan
-    accumulation keeps sub-ulp updates.  CUDA tensors (float32) launch
-    the kernel; CPU tensors run :func:`fused_step_ref`.
+    :func:`interior_statics`.  Returns the new state.  CUDA tensors
+    (float32) launch the kernel; CPU tensors run :func:`fused_step_ref`.
     """
     if _on_cpu(q_int):
-        return fused_step_ref(q_int, statics, dt, cfg, emit_delta)
+        return fused_step_ref(q_int, statics, dt, cfg)
     nx, ny = _check_cuda(q_int, statics)
     iprm, fprm = _kernel_params(cfg)
     d0, _ = mc_directions(cfg.MC_order)
@@ -463,47 +485,82 @@ def fused_step(q_int, statics, dt, cfg, emit_delta=False):
     with torch.cuda.device(q_int.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gf_fused_step(q_int.data_ptr(), statics.data_ptr(),
-                               out.data_ptr(), nx, ny, d0, int(emit_delta),
-                               iprm.ctypes.data, fprm.ctypes.data,
-                               float(dt), stream)
+                               out.data_ptr(), nx, ny, d0, iprm.ctypes.data,
+                               fprm.ctypes.data, float(dt), stream)
     _build.check(lib, rc, "gf_fused_step")
     LAUNCHES["fused_step"] += 1
     return out
 
 
-def comp_steps(q_int, q_lo, statics, dt, cfg, n):
-    """``n`` Kahan-compensated steps on the ``(q, q_lo)`` carry.
+def _comp_sweeps(entry, key, q_int, q_lo, statics, dt, cfg, n, k, *bc):
+    """Launch ``n >= 1`` compensated steps through the C sweep entry
+    ``entry`` (sweeps of ``k`` and one of ``n mod k``) on two fresh
+    buffer pairs; ``bc``: the boundary parameter blocks.  The C entry
+    refuses a depth outside ``1.._k_steps(cfg)``, and the refusal raises
+    here.  Returns ``(q, q_lo)``."""
+    _, nx, ny = q_int.shape
+    iprm, fprm = _kernel_params(cfg)
+    d0, _ = mc_directions(cfg.MC_order)
+    bufs = torch.empty((2 if n > k else 1, 6, nx, ny), dtype=q_int.dtype,
+                       device=q_int.device)
+    lib = _build.load()
+    with torch.cuda.device(q_int.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(
+            q_int.data_ptr(), q_lo.data_ptr(), statics.data_ptr(),
+            bufs[0].data_ptr(), bufs[-1].data_ptr(), nx, ny, n, k, d0,
+            iprm.ctypes.data, fprm.ctypes.data,
+            *(b.ctypes.data for b in bc), float(dt), stream)
+    _build.check(lib, rc, entry)
+    launches = -(-n // k)
+    LAUNCHES[key] += launches
+    out = bufs[(launches - 1) % 2]
+    return out[:3], out[3:]
 
-    One kernel launch per step, reading one buffer pair and writing the
-    other.  The inputs are not modified.  Returns ``(q, q_lo)``.  CUDA
-    tensors (float32) launch the kernel; CPU tensors run
-    :func:`comp_steps_ref`.
+
+def comp_steps(q_int, q_lo, statics, dt, cfg, n):
+    """``n`` Kahan-compensated periodic steps on the ``(q, q_lo)`` carry.
+
+    One C call: ``n // k`` sweeps of ``k = _comp_k_steps(cfg)`` steps and
+    one of ``n mod k``, each a launch that advances every tile that many
+    steps on chip, reading one buffer pair and writing the other.  The
+    result equals ``n`` launches of :func:`comp_step_once` bit for bit.
+    The inputs are not modified.  Returns ``(q, q_lo)``.  CUDA tensors
+    (float32) launch the kernel; CPU tensors run :func:`comp_steps_ref`.
     """
     if _on_cpu(q_int):
         return comp_steps_ref(q_int, q_lo, statics, dt, cfg, n)
-    nx, ny = _check_cuda(q_int, statics, q_lo)
+    _periodic_gate(cfg)
+    _check_cuda(q_int, statics, q_lo)
     if n == 0:
         return q_int, q_lo
+    return _comp_sweeps("gf_comp_sweeps", "comp_sweep", q_int, q_lo,
+                        statics, dt, cfg, n, _comp_k_steps(cfg))
+
+
+def comp_step_once(q_int, q_lo, statics, dt, cfg):
+    """One Kahan-compensated periodic step on the ``(q, q_lo)`` carry, one
+    launch of the one-step kernel: the witness that :func:`comp_steps`
+    rounds like ``n`` launches of it.  Returns ``(q, q_lo)``.  CUDA
+    tensors (float32) launch the kernel; CPU tensors run
+    :func:`comp_steps_ref`."""
+    if _on_cpu(q_int):
+        return comp_steps_ref(q_int, q_lo, statics, dt, cfg, 1)
+    nx, ny = _check_cuda(q_int, statics, q_lo)
     iprm, fprm = _kernel_params(cfg)
     d0, _ = mc_directions(cfg.MC_order)
-    bufs = [torch.empty((6, nx, ny), dtype=q_int.dtype, device=q_int.device)
-            for _ in range(min(n, 2))]
-    src = (q_int, q_lo)
+    out = torch.empty((6, nx, ny), dtype=q_int.dtype, device=q_int.device)
     lib = _build.load()
-    dt = float(dt)
     with torch.cuda.device(q_int.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for i in range(n):
-            dst = bufs[i % 2]
-            rc = lib.gf_comp_step(src[0].data_ptr(), src[1].data_ptr(),
-                                  statics.data_ptr(), dst[:3].data_ptr(),
-                                  dst[3:].data_ptr(), nx, ny, d0,
-                                  iprm.ctypes.data, fprm.ctypes.data, dt,
-                                  stream)
-            _build.check(lib, rc, "gf_comp_step")
-            LAUNCHES["comp_step"] += 1
-            src = (dst[:3], dst[3:])
-    return src
+        rc = lib.gf_comp_step(q_int.data_ptr(), q_lo.data_ptr(),
+                              statics.data_ptr(), out[:3].data_ptr(),
+                              out[3:].data_ptr(), nx, ny, d0,
+                              iprm.ctypes.data, fprm.ctypes.data, float(dt),
+                              stream)
+    _build.check(lib, rc, "gf_comp_step")
+    LAUNCHES["comp_step"] += 1
+    return out[:3], out[3:]
 
 
 def _periodic_gate(cfg):
@@ -585,18 +642,17 @@ def _bc_gate(cfg):
                          "configuration (see pallas_supported)")
 
 
-def fused_step_bc(q_int, statics_g, dt, cfg, emit_delta=False):
+def fused_step_bc(q_int, statics_g, dt, cfg):
     """One fused MacCormack step on D/N, thinning or periodic edges.
 
     ``q_int``: (3, nx, ny) interior state; ``statics_g``: (8, nx+2, ny+2)
     from :func:`ghost_statics`.  The ghosts come from the edge formulas,
     and are refilled from the predictor between the passes.  Returns the
-    new interior state, or with ``emit_delta`` the increment.  CUDA
-    tensors (float32) launch the kernel; CPU tensors run
-    :func:`fused_step_bc_ref`.
+    new interior state.  CUDA tensors (float32) launch the kernel; CPU
+    tensors run :func:`fused_step_bc_ref`.
     """
     if _on_cpu(q_int):
-        return fused_step_bc_ref(q_int, statics_g, dt, cfg, emit_delta)
+        return fused_step_bc_ref(q_int, statics_g, dt, cfg)
     _bc_gate(cfg)
     nx, ny = _check_cuda(q_int, statics_g, ghosted=True)
     iprm, fprm = _kernel_params(cfg)
@@ -608,49 +664,62 @@ def fused_step_bc(q_int, statics_g, dt, cfg, emit_delta=False):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gf_fused_step_bc(q_int.data_ptr(), statics_g.data_ptr(),
                                   out.data_ptr(), nx, ny, d0,
-                                  int(emit_delta), iprm.ctypes.data,
-                                  fprm.ctypes.data, bprm.ctypes.data,
-                                  bfprm.ctypes.data, float(dt), stream)
+                                  iprm.ctypes.data, fprm.ctypes.data,
+                                  bprm.ctypes.data, bfprm.ctypes.data,
+                                  float(dt), stream)
     _build.check(lib, rc, "gf_fused_step_bc")
     LAUNCHES["fused_step_bc"] += 1
     return out
 
 
 def comp_steps_bc(q_int, q_lo, statics_g, dt, cfg, n):
-    """``n`` Kahan-compensated boundary steps on the interior
-    ``(q, q_lo)`` carry, one launch per step (ghosts rebuilt in-kernel
-    from the interior each step).  The inputs are not modified.  Returns
-    ``(q, q_lo)``.  CUDA tensors (float32) launch the kernel; CPU tensors
-    run :func:`comp_steps_bc_ref`.
+    """``n`` Kahan-compensated boundary steps on the interior ``(q, q_lo)``
+    carry.
+
+    One C call: ``n // k`` sweeps of ``k = _comp_k_steps(cfg)`` steps and
+    one of ``n mod k``, each tile advanced on chip with its ghosts
+    refilled from ``q`` after every pass and average.  The result equals
+    ``n`` launches of :func:`comp_step_bc_once` bit for bit.  The inputs
+    are not modified.  Returns ``(q, q_lo)``.  CUDA tensors (float32)
+    launch the kernel; CPU tensors run :func:`comp_steps_bc_ref`.
     """
     if _on_cpu(q_int):
         return comp_steps_bc_ref(q_int, q_lo, statics_g, dt, cfg, n)
     _bc_gate(cfg)
-    nx, ny = _check_cuda(q_int, statics_g, q_lo, ghosted=True)
+    _check_cuda(q_int, statics_g, q_lo, ghosted=True)
     if n == 0:
         return q_int, q_lo
+    return _comp_sweeps("gf_comp_sweeps_bc", "comp_sweep_bc", q_int, q_lo,
+                        statics_g, dt, cfg, n, _comp_k_steps(cfg),
+                        *_bc_params(cfg))
+
+
+def comp_step_bc_once(q_int, q_lo, statics_g, dt, cfg):
+    """One Kahan-compensated boundary step on the interior ``(q, q_lo)``
+    carry (ghosts rebuilt in-kernel from the interior), one launch of the
+    one-step kernel: the witness of :func:`comp_steps_bc`.  Returns
+    ``(q, q_lo)``.  CUDA tensors (float32) launch the kernel; CPU tensors
+    run :func:`comp_steps_bc_ref`."""
+    if _on_cpu(q_int):
+        return comp_steps_bc_ref(q_int, q_lo, statics_g, dt, cfg, 1)
+    _bc_gate(cfg)
+    nx, ny = _check_cuda(q_int, statics_g, q_lo, ghosted=True)
     iprm, fprm = _kernel_params(cfg)
     bprm, bfprm = _bc_params(cfg)
     d0, _ = mc_directions(cfg.MC_order)
-    bufs = [torch.empty((6, nx, ny), dtype=q_int.dtype, device=q_int.device)
-            for _ in range(min(n, 2))]
-    src = (q_int, q_lo)
+    out = torch.empty((6, nx, ny), dtype=q_int.dtype, device=q_int.device)
     lib = _build.load()
-    dt = float(dt)
     with torch.cuda.device(q_int.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for i in range(n):
-            dst = bufs[i % 2]
-            rc = lib.gf_comp_step_bc(src[0].data_ptr(), src[1].data_ptr(),
-                                     statics_g.data_ptr(), dst[:3].data_ptr(),
-                                     dst[3:].data_ptr(), nx, ny, d0,
-                                     iprm.ctypes.data, fprm.ctypes.data,
-                                     bprm.ctypes.data, bfprm.ctypes.data, dt,
-                                     stream)
-            _build.check(lib, rc, "gf_comp_step_bc")
-            LAUNCHES["comp_step_bc"] += 1
-            src = (dst[:3], dst[3:])
-    return src
+        rc = lib.gf_comp_step_bc(q_int.data_ptr(), q_lo.data_ptr(),
+                                 statics_g.data_ptr(), out[:3].data_ptr(),
+                                 out[3:].data_ptr(), nx, ny, d0,
+                                 iprm.ctypes.data, fprm.ctypes.data,
+                                 bprm.ctypes.data, bfprm.ctypes.data,
+                                 float(dt), stream)
+    _build.check(lib, rc, "gf_comp_step_bc")
+    LAUNCHES["comp_step_bc"] += 1
+    return out[:3], out[3:]
 
 
 def plain_steps_bc(q_int, statics_g, dt, cfg, k):
@@ -809,12 +878,12 @@ def make_pallas_loop(cfg, nx, ny, dtype=torch.float32, compensated=False,
     of :func:`_k_steps` steps and the one-step kernel for the remainder.
     ``compensated=True`` accumulates the increments with a Kahan carry
     ``(q, q_lo)``, which float32 runs need near steady state, where
-    per-step increments fall below one ulp of the density: full sweeps of
-    :func:`_k_steps` steps go through the compensated kernel, the
-    remainder through the one-step kernel with ``emit_delta`` and the same
-    two-sum in torch.  ``with_lo=True`` (requires ``compensated``)
-    exposes the carry: ``loop(q, topo, extra, dt, n_steps, q_lo) -> (q,
-    q_lo)``.
+    per-step increments fall below one ulp of the density: the whole run
+    goes through the compensated sweeps (:func:`comp_steps` or
+    :func:`comp_steps_bc`, one C call: sweeps of :func:`_comp_k_steps`
+    steps and one of the remainder).  ``with_lo=True`` (requires
+    ``compensated``) exposes the carry: ``loop(q, topo, extra, dt,
+    n_steps, q_lo) -> (q, q_lo)``.
     """
     if with_lo and not compensated:
         raise ValueError("with_lo requires compensated=True")
@@ -825,8 +894,7 @@ def make_pallas_loop(cfg, nx, ny, dtype=torch.float32, compensated=False,
                              "carry (no chunked EHL driver on mixed edges)")
         return make_mixed_loop(cfg, nx, ny, dtype=dtype,
                                compensated=compensated)
-    statics, step_fn, steps_fn = _kernels(cfg)
-    k = _k_steps(cfg)
+    statics, _, steps_fn = _kernels(cfg)
 
     def loop(q, topo, extra, dt, n_steps, q_lo=None):
         q = torch.as_tensor(q).to(dtype)
@@ -841,11 +909,7 @@ def make_pallas_loop(cfg, nx, ny, dtype=torch.float32, compensated=False,
         lo = (torch.zeros_like(q_int) if q_lo is None
               else torch.as_tensor(q_lo, device=q.device).to(dtype)
               .contiguous())
-        n_sweeps, n_rem = divmod(n_steps, k)
-        q_int, lo = steps_fn(q_int, lo, st, dt, cfg, n_sweeps * k)
-        for _ in range(n_rem):
-            q_int, lo = _kahan(q_int, lo, step_fn(q_int, st, dt, cfg,
-                                                   emit_delta=True))
+        q_int, lo = steps_fn(q_int, lo, st, dt, cfg, n_steps)
         if with_lo:
             return with_ghosts(q_int, cfg), lo
         return with_ghosts(q_int, cfg)

@@ -1,8 +1,10 @@
 """CUDA kernels of the port against their plain twins, on a GPU.
 
 K1/K2 (periodic), K3 (D/N edges and shear thinning, per step and
-compensated), K4 (mixed per-component edges, per step and through its
-loop) on ragged shapes (no multiple of the 8 x 32 tile), the plain
+compensated), the compensated sweeps K2c/K3c (equal bit for bit to the
+one-step compensated kernels launched once per step, q and q_lo), K4
+(mixed per-component edges, per step and through its loop) on ragged
+shapes (no multiple of the 8 x 32 tile), the plain
 whole-run kernels (K2p/Ke, Kv, K3p: equal bit for bit to K1 or K3
 launched once per step), K5/K6/K7 (the GP-closed steps) at 128 x 128
 bit for bit, on every edge layout at 16-200 training points, the means
@@ -58,13 +60,12 @@ def _inputs(p):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("emit_delta", [False, True])
-def test_fused_step_matches_twin(cuda_problem, emit_delta):
+def test_fused_step_matches_twin(cuda_problem):
     """Ragged tiles (40 x 72 is no multiple of the 8 x 32 tile)."""
     cfg = cuda_problem._solver_cfg
     q, st, dt = _inputs(cuda_problem)
-    out = S.fused_step(q, st, dt, cfg, emit_delta=emit_delta)
-    ref = S.fused_step_ref(q, st, dt, cfg, emit_delta=emit_delta)
+    out = S.fused_step(q, st, dt, cfg)
+    ref = S.fused_step_ref(q, st, dt, cfg)
     assert kernel_vs_plain_err(out, ref) < 1e-5
 
 
@@ -82,11 +83,13 @@ def test_comp_steps_matches_twin(cuda_problem):
 
 @pytest.mark.gpu
 def test_run_takes_the_kernels(cuda_problem):
+    """10 steps: three compensated sweeps of 3 and one of 1, one C
+    call."""
     S.reset_launches()
     cuda_problem.run()
     assert cuda_problem._route == "run_compiled_fast"
-    assert S.LAUNCHES == {**S.LAUNCHES, "comp_step": 8, "fused_step": 2}
-    assert sum(S.LAUNCHES.values()) == 10
+    assert S.LAUNCHES == {**S.LAUNCHES, "comp_sweep": 4}
+    assert sum(S.LAUNCHES.values()) == 4
 
 
 @pytest.mark.gpu
@@ -121,18 +124,17 @@ def _ghosted_inputs(p):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("emit_delta", [False, True])
 @pytest.mark.parametrize("case, ny", [(c, 72) for c in BC_CASES]
                          + [("dn_x", 1), ("dn_x_barus_eyring", 1)])
-def test_fused_step_bc_matches_twin(cuda, case, ny, emit_delta):
+def test_fused_step_bc_matches_twin(cuda, case, ny):
     """K3 on every edge/thinning case, and on 1D grids (Ny = 1: the
     y-periodic tile wraps onto itself)."""
     p = _problem(*BC_CASES[case], ny=ny)
     cfg = p._solver_cfg
     q, st, dt = _ghosted_inputs(p)
     S.reset_launches()
-    out = S.fused_step_bc(q, st, dt, cfg, emit_delta=emit_delta)
-    ref = S.fused_step_bc_ref(q, st, dt, cfg, emit_delta=emit_delta)
+    out = S.fused_step_bc(q, st, dt, cfg)
+    ref = S.fused_step_bc_ref(q, st, dt, cfg)
     assert S.LAUNCHES["fused_step_bc"] == 1
     assert kernel_vs_plain_err(out, ref) < 1e-5
 
@@ -185,16 +187,175 @@ def test_mixed_step_matches_twin(cuda, case):
 @pytest.mark.parametrize("case", ["dn_x", "dn_x_barus_eyring"])
 def test_dn_run_takes_the_kernels(cuda, case):
     """A silent D/N (and thinning) run takes run_compiled_fast: 10 steps
-    are full compensated sweeps plus remainder steps of K3."""
+    are compensated sweeps of k and one of 10 mod k, in one C call."""
     p = _problem(*BC_CASES[case], max_it=10)
     S.reset_launches()
     p.run()
     assert p._route == "run_compiled_fast" and p.step == 10
-    k = S._k_steps(p._solver_cfg)
-    assert S.LAUNCHES["comp_step_bc"] == 10 // k * k
-    assert S.LAUNCHES["fused_step_bc"] == 10 % k
-    assert sum(S.LAUNCHES.values()) == 10
+    k = S._comp_k_steps(p._solver_cfg)
+    assert S.LAUNCHES["comp_sweep_bc"] == -(-10 // k)
+    assert sum(S.LAUNCHES.values()) == -(-10 // k)
     assert np.isfinite(p.q).all() and (p.q[0] > 0).all()
+
+
+# -- compensated sweeps (K2c, K3c) -------------------------------------------
+
+# chip_smoke.py's Eyring asperity (BWR, D/N on four edges, LJ units) at
+# 40 x 72: the sweeps of 2 steps
+ASPERITY = """
+options: {output: data/torch_gpu, write_freq: 100000, silent: True}
+grid: {Lx: 1470., Ly: 1470., Nx: 40, Ny: 72, xE: ['D', 'N', 'N'],
+       xW: ['D', 'N', 'N'], yS: ['D', 'N', 'N'], yN: ['D', 'N', 'N'],
+       xE_D: 0.8, xW_D: 0.8, yS_D: 0.8, yN_D: 0.8}
+geometry: {type: asperity, hmin: 12., hmax: 60., num: 2, seed: 0, U: 0.12,
+           V: 0.06}
+numerics: {CFL: 0.5, adaptive: 0, tol: 1e-30, dt: 0.05, max_it: 10}
+properties: {shear: 2.15, bulk: 0., EOS: BWR, T: 1.0, rho0: 0.8,
+             thinning: {name: Eyring, tauE: 0.002}}
+"""
+# (case, Ny): the ragged 40 x 72 grid, and 1D grids (40 x 1), where a
+# tile's window wraps onto its one column
+COMP_CASES = [*((c, 72) for c in ("periodic", *BC_CASES, "asperity_eyring")),
+              ("periodic", 1), ("dn_x", 1), ("dn_x_barus_eyring", 1)]
+
+
+def _comp_problem(case, ny=72):
+    """The case's problem on the card.  The Barus + Eyring journal takes dt
+    2e-12: at 2e-11 its perturbed state goes non-finite within the 18
+    compensated steps of these tests (at the fourth; the twin alike)."""
+    if case == "periodic":
+        return _problem("", ny=ny)
+    if case == "asperity_eyring":
+        p = Problem.from_string(ASPERITY, device="cuda", dtype=torch.float32)
+        p._pre_run()
+        return p
+    return _problem(*BC_CASES[case], ny=ny,
+                    dt=2e-12 if case == "dn_x_barus_eyring" else 2e-11)
+
+
+def _comp_route(case):
+    """(inputs, one-step witness, sweeps, C sweep entry, launch key) of a
+    case."""
+    if case == "periodic":
+        return (_inputs, S.comp_step_once, S.comp_steps, "gf_comp_sweeps",
+                "comp_sweep")
+    return (_ghosted_inputs, S.comp_step_bc_once, S.comp_steps_bc,
+            "gf_comp_sweeps_bc", "comp_sweep_bc")
+
+
+def _sweeps_of(case, cfg, entry, key, q, lo, st, dt, n, k):
+    """n compensated steps through the C sweep entry in sweeps of k."""
+    extra = () if case == "periodic" else S._bc_params(cfg)
+    return S._comp_sweeps(entry, key, q, lo, st, dt, cfg, n, k, *extra)
+
+
+def _carry(p, inputs, once):
+    """A perturbed state and a nonzero carry: 8 one-step compensated
+    steps from a zero carry."""
+    q, st, dt = inputs(p)
+    lo = torch.zeros_like(q)
+    for _ in range(8):
+        q, lo = once(q, lo, st, dt, p._solver_cfg)
+    assert lo.abs().max() > 0
+    return q, lo, st, dt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case, ny", COMP_CASES)
+def test_comp_sweeps_match_one_step_kernel(cuda, case, ny):
+    """K2c/K3c: n steps in sweeps of the main path's depth k equal n
+    launches of the one-step compensated kernel bit for bit, q and q_lo,
+    from a nonzero carry on the ragged 40 x 72 grid and on 1D grids,
+    n = 1..KMAX and 2 KMAX + 1; ceil(n / k) launches; the inputs
+    untouched."""
+    p = _comp_problem(case, ny)
+    cfg = p._solver_cfg
+    inputs, once, steps, _, key = _comp_route(case)
+    q, lo, st, dt = _carry(p, inputs, once)
+    q0, lo0 = q.clone(), lo.clone()
+    kmax, k = S._k_steps(cfg), S._comp_k_steps(cfg)
+    for n in [*range(1, kmax + 1), 2 * kmax + 1]:
+        ref = (q, lo)
+        for _ in range(n):
+            ref = once(*ref, st, dt, cfg)
+        S.reset_launches()
+        out = steps(q, lo, st, dt, cfg, n)
+        assert S.LAUNCHES[key] == -(-n // k)
+        assert sum(S.LAUNCHES.values()) == S.LAUNCHES[key]
+        assert torch.equal(out[0], ref[0]), n
+        assert torch.equal(out[1], ref[1]), n
+    assert torch.equal(q, q0) and torch.equal(lo, lo0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case, ny", COMP_CASES)
+def test_comp_sweeps_of_every_depth_match_one_step_kernel(cuda, case, ny):
+    """k = 1..KMAX steps in one sweep, and n = 2 KMAX + 1 steps in sweeps
+    of each depth k (n no multiple of k but for k = 1), through the C
+    sweep entry, equal as many one-step launches bit for bit."""
+    p = _comp_problem(case, ny)
+    cfg = p._solver_cfg
+    inputs, once, _, entry, key = _comp_route(case)
+    q, lo, st, dt = _carry(p, inputs, once)
+    kmax = S._k_steps(cfg)
+    n = 2 * kmax + 1
+    ref = (q, lo)
+    for _ in range(n):
+        ref = once(*ref, st, dt, cfg)
+    for k in range(1, kmax + 1):
+        S.reset_launches()
+        out = _sweeps_of(case, cfg, entry, key, q, lo, st, dt, n, k)
+        assert S.LAUNCHES[key] == -(-n // k)
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]), k
+        one = (q, lo)
+        for _ in range(k):
+            one = once(*one, st, dt, cfg)
+        out = _sweeps_of(case, cfg, entry, key, q, lo, st, dt, k, k)
+        assert torch.equal(out[0], one[0]) and torch.equal(out[1], one[1]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["periodic", "dn_x", "dn_x_barus_eyring",
+                                  "asperity_eyring"])
+def test_compensated_loop_launches_the_sweeps(cuda, case):
+    """make_pallas_loop(compensated=True, with_lo=True) over 10 steps:
+    ceil(10 / k) sweeps and no one-step kernel; q and q_lo equal 10
+    one-step launches from the same carry bit for bit."""
+    p = _comp_problem(case)
+    cfg = p._solver_cfg
+    inputs, once, _, _, key = _comp_route(case)
+    q, lo, st, dt = _carry(p, inputs, once)
+    nx, ny = p.grid["Nx"], p.grid["Ny"]
+    state = perturbed_state(p, seed=0, amp=0.01)
+    q_g = S.with_ghosts(q, cfg)
+    loop = S.make_pallas_loop(cfg, nx, ny, compensated=True, with_lo=True)
+    S.reset_launches()
+    out, lo_out = loop(q_g, state.topo, state.extra, dt, 10, lo)
+    k = S._comp_k_steps(cfg)
+    assert {n: v for n, v in S.LAUNCHES.items() if v} == {key: -(-10 // k)}
+    ref = (q, lo)
+    for _ in range(10):
+        ref = once(*ref, st, dt, cfg)
+    assert torch.equal(out[:, 1:-1, 1:-1], ref[0])
+    assert torch.equal(lo_out, ref[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["periodic", "dn_x", "asperity_eyring"])
+def test_comp_sweep_depth_outside_range_raises(cuda, case):
+    """A sweep of 0 or KMAX + 1 steps: the C entry refuses it, and its
+    error raises through _build.check; nothing is counted and nothing
+    falls back to the one-step kernel."""
+    p = _comp_problem(case)
+    cfg = p._solver_cfg
+    inputs, _, _, entry, key = _comp_route(case)
+    q, st, dt = inputs(p)
+    lo = torch.zeros_like(q)
+    S.reset_launches()
+    for k in (0, S._k_steps(cfg) + 1):
+        with pytest.raises(RuntimeError, match=entry):
+            _sweeps_of(case, cfg, entry, key, q, lo, st, dt, 4, k)
+    assert not any(S.LAUNCHES.values())
 
 
 # -- plain whole-run kernels --------------------------------------------------
