@@ -82,6 +82,7 @@ SAME_TOL = 1e-6
 FV_STEPS = 5000
 FV_SIZES = (512, 1024, 2048)
 FV_REM_STEPS = 5003
+PLAIN_CALL_STEPS = 1024   # phase 5: steps of a timed plain sweep call
 PLAIN_ROUTE_STEPS = 100  # phase 3p: route agreement at 256²
 THINNING_ENGAGED = 0.9   # phase 3c: the thinning factor must fall below
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM published peak
@@ -1526,11 +1527,38 @@ def check_same(label, out, ref):
         raise RuntimeError(f"{label}: scaled diff {err} >= {SAME_TOL}")
 
 
+def plain_launches(cfg, n, k=None):
+    """The launch counts of n plain steps through the C sweep entry in
+    sweeps of k (the main path's depth, _plain_k_steps, by default):
+    every sweep as plain_steps_bc on D/N edges; on periodic ones a sweep
+    of the main path's depth as plain_steps (K2p), any other as
+    plain_steps_rem (Ke)."""
+    from gapflow_torch.ops import stencil as S
+    main = S._plain_k_steps(cfg)
+    k = main if k is None else k
+    full, rem = divmod(n, k)
+    if not S._periodic_kernel_ok(cfg):
+        return {"plain_steps_bc": full + (rem > 0)}
+    got = {}
+    for depth, count in ((k, full), (rem, int(rem > 0))):
+        key = "plain_steps" if depth == main else "plain_steps_rem"
+        got[key] = got.get(key, 0) + count
+    return {key: v for key, v in got.items() if v}
+
+
 def plain_kernel_checks(err):
-    """Phase 2i: plain_steps (k = 1..4), plain_run (n = 9) and
-    plain_steps_bc (k = 1.._k_steps on BC_CASES) against K1/K3 launched
-    once per step and against their twins; a refused cooperative launch
-    raises."""
+    """Phase 2i: plain_run (n = 9) against K1 launched once per step and
+    against its twin, a refused cooperative launch raising; then the
+    plain sweeps against K1/K3 launched once per step, bit for bit: k =
+    1..KMAX steps in one sweep (plain_steps, plain_steps_bc), n = 1..KMAX
+    and 2 KMAX + 1 steps in one C call at the main path's depth
+    (plain_sweeps, plain_sweeps_bc) and 2 KMAX + 1 at every depth k
+    (through the private ops.stencil._plain_sweeps), with their launch
+    counts, on the periodic journal at N_CHECK² and 40 x 72, every
+    BC_CASES layout, the Eyring asperity (KMAX = 2) and 1D grids (1024 x
+    1: periodic, dn_x, dn_x_barus_eyring); each sweep against its twin.
+    The C entry refuses a depth outside 1..KMAX, and the refusal raises.
+    Returns the launches of K1 and K3 (the witnesses)."""
     from gapflow_torch.ops import stencil as S
     from gapflow_torch.validate import BC_CASES
     for key in ("plain_steps", "plain_steps_rem", "plain_run",
@@ -1539,15 +1567,6 @@ def plain_kernel_checks(err):
     p = journal(N_CHECK, N_CHECK)
     cfg = p._solver_cfg
     q, st, dt = kernel_inputs(p, amp=0.01)
-    ref = q
-    for k in range(1, S.K_MULTI + 1):
-        ref = S.fused_step(ref, st, dt, cfg)
-        out = S.plain_steps(q, st, dt, cfg, k)
-        check_same(f"plain_steps k={k} vs {k} x K1", out, ref)
-        key = "plain_steps" if k == S.K_MULTI else "plain_steps_rem"
-        err[key] = max(err[key], check(
-            f"plain_steps k={k} vs twin", out,
-            S.plain_steps_ref(q, st, dt, cfg, k)))
     ref = q
     for _ in range(9):
         ref = S.fused_step(ref, st, dt, cfg)
@@ -1561,18 +1580,74 @@ def plain_kernel_checks(err):
         print(f"  plain_run on 2^20 blocks refused, as it must be: {e}")
     else:
         raise RuntimeError("a cooperative launch of 2^20 blocks ran")
-    for case, (grid, props) in BC_CASES.items():
-        pb = journal(N_CHECK, N_CHECK, grid, props, dt=2e-11)
-        cfg = pb._solver_cfg
-        q, st, dt = kernel_inputs(pb, amp=0.01, ghosted=True)
-        ref = q
-        for k in range(1, S._k_steps(cfg) + 1):
-            ref = S.fused_step_bc(ref, st, dt, cfg)
-            out = S.plain_steps_bc(q, st, dt, cfg, k)
-            check_same(f"plain_steps_bc {case} k={k} vs {k} x K3", out, ref)
-            err["plain_steps_bc"] = max(err["plain_steps_bc"], check(
-                f"plain_steps_bc {case} k={k} vs twin", out,
-                S.plain_steps_bc_ref(q, st, dt, cfg, k)))
+    witness = {"fused_step": 0, "fused_step_bc": 0}
+    cases = [("journal", journal(N_CHECK, N_CHECK), False),
+             ("journal 40x72", journal(40, 72), False)]
+    cases += [(case, journal(N_CHECK, N_CHECK, grid, props, dt=2e-11), True)
+              for case, (grid, props) in BC_CASES.items()]
+    cases.append(("asperity Eyring", problem(asperity_yaml(N_CHECK, 1000)),
+                  True))
+    cases.append(("journal 1024x1", journal(1024, 1), False))
+    cases += [(f"{case} 1024x1", journal(1024, 1, *BC_CASES[case],
+                                         dt=2e-12 if "barus" in case
+                                         else 2e-11), True)
+              for case in ("dn_x", "dn_x_barus_eyring")]
+    for label, pc, bc in cases:
+        cfg = pc._solver_cfg
+        q, st, dt = kernel_inputs(pc, amp=0.01, ghosted=bc)
+        once = S.fused_step_bc if bc else S.fused_step
+        one_sweep = S.plain_steps_bc if bc else S.plain_steps
+        sweeps = S.plain_sweeps_bc if bc else S.plain_sweeps
+        twin = S.plain_steps_bc_ref if bc else S.plain_steps_ref
+        key = "plain_steps_bc" if bc else "plain_steps"
+        kmax = S._k_steps(cfg)
+        reset_all()
+        refs = [q]
+        for _ in range(2 * kmax + 1):
+            refs.append(once(refs[-1], st, dt, cfg))
+        for k in witness:
+            witness[k] += S.LAUNCHES[k]
+        runs = [(f"{key.replace('steps', 'sweeps')} n={n}", n, None)
+                for n in (*range(1, kmax + 1), 2 * kmax + 1)]
+        runs += [(f"_plain_sweeps n={2 * kmax + 1} k={k}", 2 * kmax + 1, k)
+                 for k in range(1, kmax + 1)]
+        for k in range(1, kmax + 1):
+            reset_all()
+            out = one_sweep(q, st, dt, cfg, k)
+            torch.cuda.synchronize()
+            check_equal(f"{key} {label} k={k} vs {k} x one-step kernel", out,
+                        refs[k])
+            expect_launches(f"2i {label} k={k}", plain_launches(cfg, k, k))
+            if label == "asperity Eyring" and k > 1:
+                # BWR + Eyring amplifies a last-bit difference by orders
+                # of magnitude a step: the twin is held over one step
+                continue
+            e = check(f"{key} {label} k={k} vs twin", out,
+                      twin(q, st, dt, cfg, k))
+            ekey = key if bc or k == S._plain_k_steps(cfg) \
+                else "plain_steps_rem"
+            err[ekey] = max(err[ekey], e)
+        for name, n, k in runs:
+            reset_all()
+            out = (sweeps(q, st, dt, cfg, n) if k is None else
+                   S._plain_sweeps(q, st, dt, cfg, n, k))
+            want = plain_launches(cfg, n, k)
+            expect_launches(f"2i {label} {name}", want)
+            check_equal(f"{name} {label} ({want}) vs {n} x one-step kernel",
+                        out, refs[n])
+        before = dict(S.LAUNCHES)
+        for k in (0, kmax + 1):
+            try:
+                S._plain_sweeps(q, st, dt, cfg, 4, k)
+            except RuntimeError as e:
+                print(f"  {label}: a plain sweep of {k} steps refused, as "
+                      f"it must be: {e}")
+            else:
+                raise RuntimeError(f"2i {label}: a sweep of {k} steps ran")
+        if dict(S.LAUNCHES) != before:
+            raise RuntimeError(f"2i {label}: a refused sweep was counted")
+    torch.cuda.synchronize()
+    return witness
 
 
 def check_bits(label, out, ref):
@@ -1716,9 +1791,10 @@ def timed_runs(label, p, run, n, want, reps=3):
 def fv_throughput(launches):
     """Phase 3o: bench.py bench_fv_step through run_steps_fast(FV_STEPS,
     compensated=False) at each of FV_SIZES (the whole run in one Kv
-    launch where it fits the L2 cache, else K2p sweeps), then the same
-    calls through K1 launched once per step; the two routes' final states
-    compared.  A run of FV_REM_STEPS at N x N adds a remainder launch."""
+    launch where it fits the L2 cache, else one C call of K2p sweeps),
+    then the same calls through K1 launched once per step; the two routes'
+    final states compared.  A run of FV_REM_STEPS at N x N adds a
+    remainder sweep (Ke)."""
     from gapflow_torch.ops import stencil as S
     from gapflow_torch.validate import kernel_vs_plain_err
 
@@ -1731,8 +1807,7 @@ def fv_throughput(launches):
         entry, k, n_sweeps, n_rem = S._plain_route(
             pk._solver_cfg, n, n, FV_STEPS, DEVICE)
         want = ({"plain_run": 1} if entry == "plain_run"
-                else {"plain_steps": n_sweeps,
-                      **({"plain_steps_rem": 1} if n_rem else {})})
+                else plain_launches(pk._solver_cfg, FV_STEPS))
         _, got = timed_runs(f"{n}x{n} plain route ({entry})", pk, plain,
                             FV_STEPS, want)
         for key, v in got.items():
@@ -1754,29 +1829,28 @@ def fv_throughput(launches):
     pr._pre_run()
     _, got = timed_runs(f"{N}x{N} plain route, {FV_REM_STEPS} steps", pr,
                         plain, FV_REM_STEPS,
-                        {"plain_steps": FV_REM_STEPS // S.K_MULTI,
-                         "plain_steps_rem": 1}, reps=1)
+                        plain_launches(pr._solver_cfg, FV_REM_STEPS), reps=1)
     launches["plain_steps_rem"] = got["plain_steps_rem"]
 
 
 def plain_bc_paths(launches):
     """Phase 3p: run_steps_fast(compensated=False) on 3b's inclined slider
-    and 3c's Eyring asperity at N x N, fixed dt: K3p sweeps of 4 and of 2
-    steps, K3 for the remainder."""
+    and 3c's Eyring asperity at N x N, fixed dt: one C call of K3p sweeps
+    of _plain_k_steps and a remainder sweep."""
     def plain(p, n):
         p.run_steps_fast(n, compensated=False)
 
     pb = problem(inclined_yaml(N, 1000000, adaptive=0, dt=1e-10))
     pb._pre_run()
     _, got = timed_runs(f"inclined slider {N}x{N}, D/N x edges, 1002 steps",
-                        pb, plain, 1002,
-                        {"plain_steps_bc": 250, "fused_step_bc": 2})
+                        pb, plain, 1002, plain_launches(pb._solver_cfg, 1002))
     launches["plain_steps_bc"] = got["plain_steps_bc"]
-    launches["fused_step_bc"] = got["fused_step_bc"]
     pa = problem(asperity_yaml(N, 1000000, adaptive=0))
     pa._pre_run()
-    timed_runs(f"asperity {N}x{N}, D/N on four edges, Eyring, 1001 steps",
-               pa, plain, 1001, {"plain_steps_bc": 500, "fused_step_bc": 1})
+    _, got = timed_runs(f"asperity {N}x{N}, D/N on four edges, Eyring, 1001 "
+                        f"steps", pa, plain, 1001,
+                        plain_launches(pa._solver_cfg, 1001))
+    launches["plain_steps_bc"] += got["plain_steps_bc"]
 
 
 def plain_route_check():
@@ -1828,19 +1902,19 @@ def plain_route_check():
             raise RuntimeError(f"3p {label}: kernel route {dk} from float64, "
                                f"f32 plain step {dp}")
 
-    for label, make, want, chaotic in (
+    for label, make, chaotic in (
             ("journal", lambda dtype: problem(journal_yaml_for(n), dtype),
-             {"plain_run": 1}, False),
+             False),
             ("inclined slider", lambda dtype: problem(inclined_yaml(
-                n, 1000000, adaptive=0, dt=1e-9), dtype),
-             {"plain_steps_bc": steps // 4}, False),
+                n, 1000000, adaptive=0, dt=1e-9), dtype), False),
             ("journal D/N x, Barus + Eyring", lambda dtype: problem(
                 journal_yaml_for(n, n, *BC_CASES["dn_x_barus_eyring"],
-                                 dt=2e-11), dtype),
-             {"plain_steps_bc": steps // 2}, False),
+                                 dt=2e-11), dtype), False),
             ("asperity BWR + Eyring", lambda dtype: problem(asperity_yaml(
-                n, 1000000, adaptive=0), dtype),
-             {"plain_steps_bc": steps // 2}, True)):
+                n, 1000000, adaptive=0), dtype), True)):
+        cfg = make(None)._solver_cfg
+        want = ({"plain_run": 1} if label == "journal"
+                else plain_launches(cfg, steps))
         qk, got = run(make, "kernels")
         if got != want:
             raise RuntimeError(f"3p {label}: launches {got}, expected {want}")
@@ -1864,9 +1938,10 @@ def plain_route_check():
         raise RuntimeError(f"pallas_vs_xla_err {e} >= {TOL}")
 
 
-def plain_kernel_times(n=N, reps=20, plain_reps=2):
+def plain_kernel_times(n=N, plain_reps=2):
     """Phase 5: the plain whole-run kernels on the main paths' inputs,
-    each held against its twin, then timed; per step.  Returns
+    each held against its twin, then timed per step (the sweeps over
+    whole C calls of PLAIN_CALL_STEPS steps at their depth).  Returns
     {kernel: max abs error}, {kernel: (ms, twin ms)} and {kernel:
     (bound ms, bound by)}, and prints Kv at n x n forced beside its
     main-path size."""
@@ -1876,17 +1951,24 @@ def plain_kernel_times(n=N, reps=20, plain_reps=2):
     tp = journal(n, n, dt=1e-11)
     cfg = tp._solver_cfg
     q, st, dt = kernel_inputs(tp, amp=0.01)
-    for key, k in (("plain_steps", S.K_MULTI),
-                   ("plain_steps_rem", FV_REM_STEPS % S.K_MULTI)):
+    # the least the work needs: one sweep's bytes over the deepest sweep
+    # the kernel takes (_k_steps), whatever depth the main path chose
+    kmax = S._k_steps(cfg)
+    k_main = S._plain_k_steps(cfg)
+    # whole C calls of PLAIN_CALL_STEPS steps in sweeps of the depth: a
+    # launch of one short sweep is shorter than the wrapper's host time
+    for key, k in (("plain_steps", k_main),
+                   ("plain_steps_rem", FV_REM_STEPS % k_main)):
         errs[key] = check(f"{key} k={k} journal {n}x{n}",
                           S.plain_steps(q, st, dt, cfg, k),
                           S.plain_steps_ref(q, st, dt, cfg, k))
         times[key] = (
-            time_ms(lambda: S.plain_steps(q, st, dt, cfg, k), reps) / k,
+            time_ms(lambda: S._plain_sweeps(q, st, dt, cfg, PLAIN_CALL_STEPS,
+                                            k), 3) / PLAIN_CALL_STEPS,
             time_ms(lambda: S.plain_steps_ref(q, st, dt, cfg, k),
                     plain_reps) / k)
-        b = bound((q, st), (q,), cells, k * OPS_PER_CELL)
-        bounds[key] = (b[0] / k, b[1])
+        b = bound((q, st), (q,), cells, kmax * OPS_PER_CELL)
+        bounds[key] = (b[0] / kmax, b[1])
     run_n = 100
     for m in (FV_SIZES[0], n):
         if m == n:
@@ -1918,16 +2000,18 @@ def plain_kernel_times(n=N, reps=20, plain_reps=2):
         pb = problem(text)
         cfg = pb._solver_cfg
         q, st, dt = kernel_inputs(pb, amp=0.01, ghosted=True)
-        k = S._k_steps(cfg)
+        k, kmax = S._plain_k_steps(cfg), S._k_steps(cfg)
         errs[label] = check(f"{label} k={k} {n}x{n}",
                             S.plain_steps_bc(q, st, dt, cfg, k),
                             S.plain_steps_bc_ref(q, st, dt, cfg, k))
         times[label] = (
-            time_ms(lambda: S.plain_steps_bc(q, st, dt, cfg, k), reps) / k,
+            time_ms(lambda: S.plain_sweeps_bc(q, st, dt, cfg,
+                                              PLAIN_CALL_STEPS), 3)
+            / PLAIN_CALL_STEPS,
             time_ms(lambda: S.plain_steps_bc_ref(q, st, dt, cfg, k),
                     plain_reps) / k)
-        b = bound((q, st), (q,), cells, k * OPS_PER_CELL)
-        bounds[label] = (b[0] / k, b[1])
+        b = bound((q, st), (q,), cells, kmax * OPS_PER_CELL)
+        bounds[label] = (b[0] / kmax, b[1])
     errs["plain_steps_bc"] = max(errs["plain_steps_bc"],
                                  errs.pop("plain_steps_bc (Eyring)"))
     return errs, times, bounds
@@ -2881,7 +2965,7 @@ def sharded_phase():
     ref = shard_problem(n, SHARD_CASE)
     timed_run(f"serial plain boundary route (K3p), {n}²",
               lambda: ref.run_steps_fast(steps, compensated=False), steps,
-              {"plain_steps_bc": steps // 4})
+              plain_launches(ref._solver_cfg, steps))
     for shape in SHARD_MESHES:
         p = shard_problem(n, SHARD_CASE)
         lau, _ = drive_sharded(f"D/N journal {n}²", p, steps, shape)
@@ -2963,12 +3047,15 @@ def main():
     log = _build.library_path().with_suffix(".log")
     if log.is_file():       # absent where the library was built earlier
         text = log.read_text()
-        print("  ptxas, the k-step body and the one-step compensated "
+        print("  ptxas, the sweep bodies (the compensated multi_step_kernel, "
+              "the plain sweep_kernel) and the one-step compensated "
               "kernels: " + "; ".join(
-                  entry for src in ("stencil.cu", "stencil_bc.cu")
+                  entry for src in ("stencil.cu", "stencil_bc.cu",
+                                    "stencil_plain.cu")
                   for entry in ptxas_entries(
                       text.split(f"== {src}")[-1].split("\n== ")[0])
-                  if re.search("multi_step|comp_step|,2>", entry)))
+                  if re.search("multi_step|sweep_kernel|comp_step|,2>",
+                               entry)))
         shard = text.split("== stencil_shard.cu")[-1]
         print("  ptxas, K9 (stencil_shard.cu): " + "; ".join(
             line.split("ptxas info    : ")[-1].strip()
@@ -3121,10 +3208,12 @@ def main():
     if not ident["ok"]:
         raise RuntimeError(f"K8 identity: {ident}")
 
-    print(f"phase 2i: plain whole-run kernels vs K1/K3 launched once per "
-          f"step and vs their twins ({N_CHECK} x {N_CHECK} journal, "
-          f"BC_CASES, amplitude 0.01)")
-    plain_kernel_checks(err)
+    print(f"phase 2i: plain whole-run kernels (Kv, the plain sweeps at "
+          f"every depth and in one C call) vs K1/K3 launched once per step, "
+          f"bit for bit, and vs their twins ({N_CHECK} x {N_CHECK} and 40 x "
+          f"72 journal, BC_CASES, Eyring asperity, 1024 x 1 grids, "
+          f"amplitude 0.01)")
+    plain_witness = plain_kernel_checks(err)
     print(f"phase 2i: compensated sweeps vs the one-step compensated "
           f"kernels launched once per step, q and q_lo bit for bit, from a "
           f"nonzero carry ({N_CHECK} x {N_CHECK} and 40 x 72 journal, "
@@ -3164,6 +3253,10 @@ def main():
                {"comp_sweep_bc": 1369}, one_step)
     launches["comp_sweep_bc"] = lb["comp_sweep_bc"]
     launches["comp_step_bc"] = witness_launches["comp_step_bc"]
+    # K3 runs on no main path since the plain boundary route takes its
+    # remainder as a sweep: its launches are 2i's, as the plain sweeps'
+    # witness
+    launches["fused_step_bc"] = plain_witness["fused_step_bc"]
 
     print(f"phase 3c: Problem.run(), silent float32 asperity contact {n} x "
           f"{n}, D/N on four edges, BWR, Eyring thinning, max_it 1026")
@@ -3201,11 +3294,13 @@ def main():
           "card)")
     runs = {}
     for route, comp, expect in (
-            ("run_compiled_fast", False, {"plain_steps_bc": 50}),
+            ("run_compiled_fast", False, None),
             ("run_compiled_fast", True, {"comp_sweep_bc": 67}),
             ("run_compiled", None, {})):
         pr = problem(inclined_yaml(128, 200, adaptive=0, dt=1e-9))
         pr._pre_run()
+        if expect is None:
+            expect = plain_launches(pr._solver_cfg, 200)
         S.reset_launches()
         getattr(pr, route)(**({} if comp is None else {"compensated": comp}))
         label = route if comp is None else f"{route} compensated={comp}"

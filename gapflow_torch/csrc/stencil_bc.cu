@@ -11,12 +11,14 @@
 //   - gf_mixed_step    <- mixed_bc.py _kernel_fused_bc_mixed: one step on
 //     the ghost-inclusive state of a mixed-edge run, whose periodic
 //     components on a mixed edge take given pass-1 ghost lines.
-// One template body serves all three.  Two more entries run the k-step
-// body of stencil_multi.cuh on this file's edge codes:
-//   - gf_plain_steps_bc <- stencil.py _kernel_fused_bc_hbm with nch = 3:
-//     k plain steps (4, or 2 with shear thinning) in one launch,
-//     temporally blocked on chip, the ghosts refilled in the block after
-//     every pass and every average;
+// One template body serves all three.  Three more entries run the k-step
+// sweeps on this file's edge codes:
+//   - gf_plain_sweeps_bc <- stencil.py _kernel_fused_bc_hbm with nch = 3
+//     (K3p): n plain steps in one C call, sweeps of k (ops/stencil.py
+//     _plain_k_steps; at most 4, or 2 with shear thinning) and one of
+//     n mod k, temporally blocked on chip with each cell's values in
+//     registers (stencil_sweep.cuh), the ghosts refilled after every pass
+//     and every average; gf_plain_steps_bc is one such sweep;
 //   - gf_comp_sweeps_bc <- stencil.py _kernel_fused_bc_hbm with nch = 6
 //     (K3c): n Kahan-compensated steps on the interior (q, q_lo) carry in
 //     one C call, sweeps of k steps (3 on the main path, 1 with shear
@@ -57,6 +59,7 @@
 
 #include "stencil_common.cuh"
 #include "stencil_multi.cuh"
+#include "stencil_sweep.cuh"
 
 namespace {
 
@@ -495,8 +498,30 @@ extern "C" int gf_plain_steps_bc(const float* q, const float* st, float* out,
     Thin T;
     make_bc(bprm, bfprm, &bc, &T);
     return T.model != 0
-        ? launch_multi<true, true>(q, st, out, nx, ny, k, d0, dt, P, bc, T, stream)
-        : launch_multi<true, false>(q, st, out, nx, ny, k, d0, dt, P, bc, T, stream);
+        ? plain_sweeps<true, true>(q, st, out, nullptr, nx, ny, k, k, d0, dt,
+                                   P, bc, T, stream)
+        : plain_sweeps<true, false>(q, st, out, nullptr, nx, ny, k, k, d0,
+                                    dt, P, bc, T, stream);
+}
+
+// n plain steps on D/N, thinning or periodic edges in sweeps of k (1..4,
+// or 1..2 with shear thinning) and one of n mod k; q (3, nx, ny), st (8,
+// nx+2, ny+2), A/B (3, nx, ny); the result is in A for an odd number of
+// sweeps, else in B.
+extern "C" int gf_plain_sweeps_bc(const float* q, const float* st, float* A,
+                                  float* B, int nx, int ny, int n, int k,
+                                  int d0, const int* iprm, const float* fprm,
+                                  const int* bprm, const float* bfprm,
+                                  float dt, void* stream) {
+    const Params P = make_params(iprm, fprm);
+    Bc bc;
+    Thin T;
+    make_bc(bprm, bfprm, &bc, &T);
+    return T.model != 0
+        ? plain_sweeps<true, true>(q, st, A, B, nx, ny, n, k, d0, dt, P, bc,
+                                   T, stream)
+        : plain_sweeps<true, false>(q, st, A, B, nx, ny, n, k, d0, dt, P, bc,
+                                    T, stream);
 }
 
 // n compensated steps on D/N, thinning or periodic edges in sweeps of k

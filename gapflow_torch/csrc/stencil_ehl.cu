@@ -33,7 +33,8 @@
 // balance.  The statics of a halo cell are formed again by every tile
 // that reads it (about 1.5x the cells, plus four reads of H for the
 // differences, mostly from L1/L2).  Not done yet: temporal blocking (the
-// plain periodic loop has it, stencil_multi.cuh; the EHL loop deforms
+// plain and compensated loops have it, stencil_sweep.cuh and
+// stencil_multi.cuh; the EHL loop deforms
 // the gap every step, so its statics change between steps) and CUDA
 // graphs, as for K2.
 //

@@ -1,8 +1,9 @@
-// k MacCormack steps per launch (temporal blocking), float32: the body of
-// the plain whole-run kernels K2p/Ke (stencil_plain.cu: periodic edges,
-// the interior statics) and K3p (stencil_bc.cu: Dirichlet/Neumann edges
-// and shear thinning, the ghost-inclusive statics), and, with COMP, of
-// the Kahan-compensated sweeps K2c (stencil.cu) and K3c (stencil_bc.cu).
+// k Kahan-compensated MacCormack steps per launch (temporal blocking),
+// float32: the body of the compensated sweeps K2c (stencil.cu: periodic
+// edges, the interior statics) and K3c (stencil_bc.cu: Dirichlet/Neumann
+// edges and shear thinning, the ghost-inclusive statics).  The plain
+// sweeps K2p/Ke/K3p have a body of their own, stencil_sweep.cuh, which
+// keeps each cell's values in registers.
 //
 // A block owns a TX x TY tile of interior cells.  It loads the state on
 // the tile plus a halo of h = k * SHRINK cells per side into shared
@@ -20,8 +21,8 @@
 //     interior cell, but it has statics of its own and, with thinning,
 //     a one-sided pressure gradient across the seam; an interior cell
 //     consumes that ghost's flux, not its wrapped neighbour's, where its
-//     one-sided difference crosses the seam (seam_flux below).  K2p
-//     takes K1's interior statics, where the two coincide;
+//     one-sided difference crosses the seam (seam_flux below).  K2c
+//     takes K2's interior statics, where the two coincide;
 //   - Dirichlet/Neumann: the ghost row or column at -1 / n is a window
 //     cell, built from the adjacent interior by the edge formulas at the
 //     load and again after every pass and every average (x edges first,
@@ -29,37 +30,34 @@
 //     apply_bcs does).  Cells beyond it are dead.  A refilled ghost is
 //     valid again, so domain edges consume no halo: only the edges
 //     between tiles do.
-// Every flux, update and average is the one-step kernels' own
+// Every flux, update and two-sum is the one-step kernels' own
 // arithmetic, in their order, so k steps of a launch round exactly like
-// k launches of K1 (K2p) or K3 (K3p), and the compensated form like k
-// launches of K2 or K3 in their Kahan mode.
+// k launches of K2 or K3 in their Kahan mode.
 //
-// The compensated form (COMP) carries the Kahan low part q_lo of the
-// (q, q_lo) carry in three more shared channels.  It is loaded on the
-// whole window like q: a halo cell's carry sets that cell's q after the
-// first step, and so every later step of the cells it feeds.  The
-// average becomes the two-sum of the increment, in the order of the TPU
-// kernel's _advance_comp and of the one-step kernels,
+// The Kahan low part q_lo of the (q, q_lo) carry takes three shared
+// channels beside q.  It is loaded on the whole window like q: a halo
+// cell's carry sets that cell's q after the first step, and so every
+// later step of the cells it feeds.  The step ends in the two-sum of the
+// increment, in the order of the TPU kernel's _advance_comp and of the
+// one-step kernels,
 //     delta = ((q* - q) - u) / 2;  y = delta + lo;  t = q + y;
 //     lo = y - (t - q);  q = t,
 // and the tile's q and q_lo are written.  A D/N ghost is refilled from
 // q alone; its q_lo is never read (the average skips ghost slots).
 //
 // What bounds it: on the H100 the one-step kernels are bound by memory
-// bytes (11 floats in, 3 out per cell and step; 14 and 6 with the
-// carry); k steps per launch cut those to 1/k, which leaves FP32 work
-// (~300 operations per cell and step, ~12 more for the two-sum) as the
-// bound.  The recomputed halo is the price: with a 32 x 32 tile and
-// k = 4 the window is 40 x 40, and the passes of a launch evaluate
-// about 1.3x the useful cells (16 x 32 and k = 2 with thinning:
-// 28 x 44).  The state, predictor, fluxes and sources of the window
-// live in dynamic shared memory (14 floats per cell, 15 with the
-// pressure of thinning, 3 more with the carry: 98.2 KB for the
-// compensated 38 x 38 window of k = 3, 104 KB with thinning at k = 1,
-// so two blocks still fit an SM's 228 KB); the statics are read through
+// bytes (14 floats in, 6 out per cell and step with the carry); k steps
+// per launch cut those to 1/k, which leaves FP32 work (~312 operations
+// per cell and step) as the bound.  The recomputed halo is the price:
+// with a 32 x 32 tile and k = 3 the window is 38 x 38, and the passes of
+// a launch evaluate about 1.3x the useful cells.  The state, carry,
+// predictor, fluxes and sources of the window live in dynamic shared
+// memory (17 floats per cell, 18 with the pressure of thinning: 98.2 KB
+// for the 38 x 38 window of k = 3, 104 KB with thinning at k = 1, so two
+// blocks still fit an SM's 228 KB); the statics are read through
 // the read-only cache (__ldg) rather than staged.  Per-cell integer work
-// is kept off the passes: the wrapped or clamped row and column of every window cell come from four small
-// index tables, and a cell's window row from a float reciprocal, not an
+// is kept off the passes: the wrapped or clamped row and column of every
+// window cell come from four small index tables, and a cell's window row from a float reciprocal, not an
 // integer division.
 
 #pragma once
@@ -68,24 +66,20 @@
 
 namespace {
 
-// Tile and block per variant, chosen by timing 32 x 32, 16 x 32, 8 x 32
-// and 16 x 64 tiles on 256 and 512 threads at 1024² on the H100
-// (PERF.md): 32 x 32 on 512 threads without thinning, 16 x 32 on
-// 256 with it (62 registers: 512 threads would leave one block per SM).
-// The compensated form takes 32 x 32 on 512 threads with and without
-// thinning (timed against 16 x 32 on 256 in tests/comp_sweep_bench.py,
-// PERF.md): with thinning its sweeps are one step deep (ops/stencil.py
+// Tile and block: 32 x 32 on 512 threads with and without thinning
+// (timed against 16 x 32 on 256 in tests/comp_sweep_bench.py, PERF.md):
+// with thinning the sweeps are one step deep (ops/stencil.py
 // _comp_k_steps), whose window of 18 floats a cell still leaves two
 // blocks per SM.
-template <bool THIN, bool COMP = false>
+template <bool THIN>
 struct MultiGeo {
-    static constexpr int TX = THIN && !COMP ? 16 : 32;  // tile rows (x)
-    static constexpr int TY = 32;                       // tile columns (y)
-    static constexpr int THREADS = THIN && !COMP ? 256 : 512;
+    static constexpr int TX = 32;               // tile rows (x)
+    static constexpr int TY = 32;               // tile columns (y)
+    static constexpr int THREADS = 512;
     static constexpr int SHRINK = THIN ? 3 : 1; // halo a step consumes
-    // shared floats per cell: state, predictor, fluxes, sources, the
-    // pressure of thinning, the Kahan carry
-    static constexpr int NCH = (THIN ? 15 : 14) + (COMP ? 3 : 0);
+    // shared floats per cell: state, carry, predictor, fluxes, sources,
+    // the pressure of thinning
+    static constexpr int NCH = THIN ? 18 : 17;
     static constexpr int KMAX = THIN ? 2 : 4;   // steps per launch at most
 
     // the window's floats and its four index tables
@@ -103,22 +97,22 @@ __device__ __forceinline__ bool seam(int i, int n, int d) {
 
 // k steps of the tile (blockIdx.y, blockIdx.x).  BC: the ghost-inclusive
 // layout and edge codes of K3 (st is (8, nx+2, ny+2)); else all edges
-// periodic and st is (8, nx, ny).  q, out: (3, nx, ny); with COMP also
-// the carry lo_in, lo_out: (3, nx, ny) (else null).
-template <bool BC, bool THIN, bool COMP>
-__global__ void __launch_bounds__(MultiGeo<THIN, COMP>::THREADS)
+// periodic and st is (8, nx, ny).  q, out and the carry lo_in, lo_out:
+// (3, nx, ny).
+template <bool BC, bool THIN>
+__global__ void __launch_bounds__(MultiGeo<THIN>::THREADS)
 multi_step_kernel(const float* __restrict__ q,
                   const float* __restrict__ lo_in,
                   const float* __restrict__ st, float* __restrict__ out,
                   float* __restrict__ lo_out, int nx, int ny, int k, int d0,
                   float dt, Params P, Bc bc, Thin T) {
-    using G = MultiGeo<THIN, COMP>;
+    using G = MultiGeo<THIN>;
     extern __shared__ float sm[];
     const int h = k * G::SHRINK;
     const int WX = G::TX + 2 * h, WY = G::TY + 2 * h, NW = WX * WY;
     float* qa = sm;              // [3][NW] state, averaged in place
-    float* lo = qa + 3 * NW;     // [3][NW] Kahan carry q_lo (COMP)
-    float* pd = lo + (COMP ? 3 * NW : 0);   // [3][NW] predictor q*
+    float* lo = qa + 3 * NW;     // [3][NW] Kahan carry q_lo
+    float* pd = lo + 3 * NW;     // [3][NW] predictor q*
     float* F = pd + 3 * NW;      // [5][NW] fluxes of the current pass
     float* S = F + 5 * NW;       // [3][NW] sources of the current pass
     float* pp = S + 3 * NW;      // [NW]    pressure of the pass (THIN)
@@ -188,7 +182,7 @@ multi_step_kernel(const float* __restrict__ q,
         const int w = li * WY + lj;
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-            if (COMP) lo[c * NW + w] = lo_in[c * plane + g];
+            lo[c * NW + w] = lo_in[c * plane + g];
             float v = q[c * plane + g];
             if (xghost(X)) {
                 const int e = X < 0 ? 0 : 1;
@@ -284,9 +278,8 @@ multi_step_kernel(const float* __restrict__ q,
         __syncthreads();
 
         // the update u = dt * (ddx(Fx) + ddy(Fy) - S) at interior cells:
-        // predictor q* = q - u, then the average ((q* - u) + q) / 2 or,
-        // with COMP, the two-sum of the increment ((q* - q) - u) / 2
-        // into (q, q_lo)
+        // predictor q* = q - u, then the two-sum of the increment
+        // ((q* - q) - u) / 2 into (q, q_lo)
         const int uxlo = fxlo + (d > 0), uxhi = fxhi - (d < 0);
         const int uylo = fylo + (d > 0), uyhi = fyhi - (d < 0);
         each(uxlo, uxhi, uylo, uyhi, [&](int li, int lj) {
@@ -322,15 +315,13 @@ multi_step_kernel(const float* __restrict__ q,
                 const int i = c * NW + w;
                 if (!second) {
                     pd[i] = qa[i] - u[c];
-                } else if (COMP) {
+                } else {
                     const float q0 = qa[i];
                     const float delta = ((pd[i] - q0) - u[c]) / 2.f;
                     const float y = delta + lo[i];
                     const float t = q0 + y;
                     lo[i] = y - (t - q0);
                     qa[i] = t;
-                } else {
-                    qa[i] = ((pd[i] - u[c]) + qa[i]) / 2.f;
                 }
             }
         });
@@ -385,29 +376,9 @@ multi_step_kernel(const float* __restrict__ q,
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
             out[c * plane + g] = qa[c * NW + w];
-            if (COMP) lo_out[c * plane + g] = lo[c * NW + w];
+            lo_out[c * plane + g] = lo[c * NW + w];
         }
     });
-}
-
-// Launch k plain steps of the template on stream s; returns the CUDA
-// error.
-template <bool BC, bool THIN>
-int launch_multi(const float* q, const float* st, float* out, int nx, int ny,
-                 int k, int d0, float dt, const Params& P, const Bc& bc,
-                 const Thin& T, void* s) {
-    using G = MultiGeo<THIN>;
-    if (k < 1 || k > G::KMAX) return (int)cudaErrorInvalidValue;
-    const size_t bytes = G::smem_bytes(k);
-    cudaError_t e = cudaFuncSetAttribute(
-        multi_step_kernel<BC, THIN, false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid((ny + G::TY - 1) / G::TY, (nx + G::TX - 1) / G::TX);
-    multi_step_kernel<BC, THIN, false><<<grid, G::THREADS, bytes,
-                                         (cudaStream_t)s>>>(
-        q, nullptr, st, out, nullptr, nx, ny, k, d0, dt, P, bc, T);
-    return (int)cudaGetLastError();
 }
 
 // n compensated steps on stream s: n / k sweeps of k steps and one of
@@ -421,10 +392,10 @@ template <bool BC, bool THIN>
 int comp_sweeps(const float* q, const float* lo, const float* st, float* A,
                 float* B, int nx, int ny, int n, int k, int d0, float dt,
                 const Params& P, const Bc& bc, const Thin& T, void* s) {
-    using G = MultiGeo<THIN, true>;
+    using G = MultiGeo<THIN>;
     if (k < 1 || k > G::KMAX || n < 1) return (int)cudaErrorInvalidValue;
     cudaError_t e = cudaFuncSetAttribute(
-        multi_step_kernel<BC, THIN, true>,
+        multi_step_kernel<BC, THIN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::smem_bytes(k));
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((ny + G::TY - 1) / G::TY, (nx + G::TX - 1) / G::TX);
@@ -432,9 +403,8 @@ int comp_sweeps(const float* q, const float* lo, const float* st, float* A,
     for (int done = 0, i = 0; done < n; ++i) {
         const int kk = n - done < k ? n - done : k;
         float* dst = i % 2 ? B : A;
-        multi_step_kernel<BC, THIN, true><<<grid, G::THREADS,
-                                            G::smem_bytes(kk),
-                                            (cudaStream_t)s>>>(
+        multi_step_kernel<BC, THIN><<<grid, G::THREADS, G::smem_bytes(kk),
+                                      (cudaStream_t)s>>>(
             q, lo, st, dst, dst + plane3, nx, ny, kk, d0, dt, P, bc, T);
         e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;

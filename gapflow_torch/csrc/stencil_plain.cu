@@ -3,15 +3,16 @@
 //
 // Replaces three Pallas TPU kernels of gapflow_tpu/ops/stencil.py, the
 // plain branch of make_pallas_loop:
-//   - gf_plain_steps <- _kernel_fused_hbm_loop with _advance_plain (K2p):
-//     k = K_MULTI = 4 steps of every tile in one launch, temporally
-//     blocked on chip (stencil_multi.cuh); the loop driver launches one
-//     such sweep per 4 steps, the TPU kernel folded the sweeps into its
-//     grid;
-//   - gf_plain_steps with k = n mod 4 <- _kernel_fused_ext (Ke): the
+//   - gf_plain_sweeps <- _kernel_fused_hbm_loop with _advance_plain (K2p):
+//     a whole plain run of n steps in one C call, sweeps of k steps
+//     (ops/stencil.py _plain_k_steps) temporally blocked on chip, each
+//     cell's values in registers across the sweep (stencil_sweep.cuh), as
+//     the TPU kernel folded the sweeps into its grid;
+//   - its last sweep, of n mod k steps <- _kernel_fused_ext (Ke): the
 //     remainder steps.  Ke's own job, carrying the halo-extended state
 //     between steps without a re-layout pass, has no counterpart here:
-//     the window indices wrap, so no extended layout exists;
+//     the window indices wrap, so no extended layout exists.
+//     gf_plain_steps is one sweep of k (1..4) steps on its own;
 //   - gf_plain_run   <- _kernel_fused_vmem (Kv): the whole n-step run in
 //     one cooperative launch.  Each step advances every tile by K1's
 //     tile body (stencil_tile.cuh), the state ping-pongs between two
@@ -23,10 +24,11 @@
 //     SMs), striding over the tiles; a refused cooperative launch is
 //     returned as an error, never replaced.
 //
-// What bounds them: see stencil_multi.cuh for the k-step kernel (FP32
-// work once four steps share one pass over device memory).  Kv reads
-// and writes the L2-resident state each step, so its bound is FP32 work
-// or L2 bandwidth; device memory is touched about twice per run.
+// What bounds them: see stencil_sweep.cuh for the k-step sweep (FP32
+// work and the instructions around it once k steps share one pass over
+// device memory).  Kv reads and writes the L2-resident state each step,
+// so its bound is FP32 work or L2 bandwidth; device memory is touched
+// about twice per run.
 //
 // Build: see stencil.cu and ops/_build.py (--fmad=false, IEEE division),
 // so that the kernels round like K1 launched once per step.  The grid
@@ -34,7 +36,7 @@
 
 #include <cooperative_groups.h>
 
-#include "stencil_multi.cuh"
+#include "stencil_sweep.cuh"
 #include "stencil_tile.cuh"
 
 namespace cg = cooperative_groups;
@@ -73,10 +75,20 @@ extern "C" int gf_plain_steps(const float* q, const float* st, float* out,
                               int nx, int ny, int k, int d0, const int* iprm,
                               const float* fprm, float dt, void* stream) {
     const Params P = make_params(iprm, fprm);
-    const Bc bc{};
-    const Thin T{};
-    return launch_multi<false, false>(q, st, out, nx, ny, k, d0, dt, P, bc, T,
-                                      stream);
+    return plain_sweeps<false, false>(q, st, out, nullptr, nx, ny, k, k, d0,
+                                      dt, P, Bc{}, Thin{}, stream);
+}
+
+// n plain periodic steps in sweeps of k (1..4) and one of n mod k
+// (stencil_sweep.cuh plain_sweeps); A, B (3, nx, ny) device buffers; the
+// result is in A for an odd number of sweeps, else in B.
+extern "C" int gf_plain_sweeps(const float* q, const float* st, float* A,
+                               float* B, int nx, int ny, int n, int k,
+                               int d0, const int* iprm, const float* fprm,
+                               float dt, void* stream) {
+    const Params P = make_params(iprm, fprm);
+    return plain_sweeps<false, false>(q, st, A, B, nx, ny, n, k, d0, dt, P,
+                                      Bc{}, Thin{}, stream);
 }
 
 // n plain periodic steps in one cooperative launch; the result is in A

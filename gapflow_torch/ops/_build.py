@@ -50,6 +50,11 @@ _SIGNATURES = {
                        _P],
     # q, st, out, nx, ny, k, d0, iprm, fprm, dt, stream
     "gf_plain_steps": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _P],
+    # q, st, A, B, nx, ny, n, k, d0, iprm, fprm, dt, stream
+    "gf_plain_sweeps": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _F, _P],
+    # q, st, A, B, nx, ny, n, k, d0, iprm, fprm, bprm, bfprm, dt, stream
+    "gf_plain_sweeps_bc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                           _P, _F, _P],
     # q, st, A, B, nx, ny, n, d0, iprm, fprm, dt, blocks, stream
     "gf_plain_run": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _I, _P],
     # q, st, out, nx, ny, k, d0, iprm, fprm, bprm, bfprm, dt, stream

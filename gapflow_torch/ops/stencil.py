@@ -16,10 +16,13 @@ periodic loop), ``csrc/stencil_bc.cu`` (boundary),
 - :func:`comp_step_once`: one compensated periodic step, the witness
   that :func:`comp_steps` equals ``n`` launches of it bit for bit (on
   no main path);
-- :func:`plain_steps` (replaces ``_kernel_fused_hbm_loop`` with
-  ``_advance_plain`` and, with ``k = n mod K_MULTI``, ``_kernel_fused_ext``):
-  ``k <= K_MULTI`` plain periodic steps in one launch, each tile advanced
-  ``k`` steps on chip (temporal blocking);
+- :func:`plain_sweeps` (replaces ``_kernel_fused_hbm_loop`` with
+  ``_advance_plain`` and, for the remainder, ``_kernel_fused_ext``): ``n``
+  plain periodic steps in one C call, sweeps of :func:`_plain_k_steps`
+  steps, each tile advanced that many steps on chip with each cell's
+  values in registers (temporal blocking), and one sweep of the
+  remainder; :func:`plain_steps` is one such sweep of ``k <= K_MULTI``
+  steps;
 - :func:`plain_run` (replaces ``_kernel_fused_vmem``): a whole plain
   periodic run of ``n`` steps in one cooperative launch, the state
   ping-ponging between two buffers that stay in L2 where they fit
@@ -34,10 +37,10 @@ periodic loop), ``csrc/stencil_bc.cu`` (boundary),
   refilled in the block after every pass and average;
 - :func:`comp_step_bc_once`: one compensated boundary step, the witness
   of :func:`comp_steps_bc` (on no main path);
-- :func:`plain_steps_bc` (replaces ``_kernel_fused_bc_hbm``, ``nch = 3``):
-  ``k <= _k_steps(cfg)`` plain boundary steps in one launch, temporally
-  blocked, the ghosts refilled in the block after every pass and
-  average;
+- :func:`plain_sweeps_bc` (replaces ``_kernel_fused_bc_hbm``, ``nch =
+  3``): its boundary form, ``n`` steps in one C call, the ghosts refilled
+  after every pass and average; :func:`plain_steps_bc` is one sweep of
+  ``k <= _k_steps(cfg)`` steps;
 - :func:`ehl_step` (replaces ``_kernel_fused_ehl``) and
   :func:`ehl_comp_step` (replaces ``_kernel_fused_ehl6``): K1's step and
   the compensated step on the interior ``(q, q_lo)`` carry, with the
@@ -83,16 +86,19 @@ from ..models.closures_opt import (N_STATIC, fused_pass_top_pre,
 from ..models.eos import _PRESSURE, _bwr_terms, eos_pressure, true_div
 from ..models.viscosity import _PIEZO, _THINNING
 
-#: Steps per sweep of the plain temporally blocked kernels on periodic
-#: edges (the JAX package's sweep kernel advances K_MULTI steps per
-#: launch), and the most any sweep takes; halved by shear thinning
-#: (:func:`_k_steps`).
+#: The most steps a temporally blocked sweep takes on periodic edges (the
+#: JAX package's sweep kernel advances K_MULTI steps per launch); halved
+#: by shear thinning (:func:`_k_steps`).  The loops' own depths are the
+#: measured :func:`_plain_k_steps` and :func:`_comp_k_steps`.
 K_MULTI = 4
 
 #: Kernel launches per wrapper since the last reset (the plain twins
 #: count nothing).  ``mixed_step`` counts :func:`ops.mixed_bc.mixed_step`;
-#: :func:`plain_steps` counts a sweep (``k = K_MULTI``) as ``plain_steps``
-#: and a remainder launch as ``plain_steps_rem``; :func:`comp_steps` and
+#: :func:`plain_sweeps` and :func:`plain_steps` count a sweep of
+#: :func:`_plain_k_steps` steps as ``plain_steps`` and one of any other
+#: depth (the remainder) as ``plain_steps_rem``; :func:`plain_sweeps_bc` and
+#: :func:`plain_steps_bc` count every sweep as ``plain_steps_bc``;
+#: :func:`comp_steps` and
 #: :func:`comp_steps_bc` count every launch of their C call, the
 #: remainder sweep included, as ``comp_sweep`` and ``comp_sweep_bc``;
 #: ``comp_step`` and ``comp_step_bc`` count the one-step witnesses.
@@ -147,11 +153,20 @@ def _periodic_kernel_ok(cfg):
 
 
 def _k_steps(cfg):
-    """Steps per sweep of the plain temporally blocked kernels, and the
-    most a sweep takes: the TPU kernel's depth, halved by shear thinning
-    (its viscosity reads the pressure at +-1, doubling the halo each
-    step consumes)."""
+    """The most steps a temporally blocked sweep takes: the TPU kernel's
+    depth, halved by shear thinning (its viscosity reads the pressure at
+    +-1, tripling the halo each step consumes)."""
     return K_MULTI // 2 if cfg.thinning is not None else K_MULTI
+
+
+def _plain_k_steps(cfg):
+    """Steps per sweep of the plain loop (:func:`plain_sweeps`,
+    :func:`plain_sweeps_bc`), the fastest depth timed at 1024² on the
+    H100 (``tests/comp_sweep_bench.py``, PERF.md): 2 without shear
+    thinning, whose 32-column window loses a column a side per step; 1
+    with it, which consumes three.  Any depth in ``1.._k_steps(cfg)``
+    gives the same result bit for bit."""
+    return 1 if cfg.thinning is not None else 2
 
 
 def _comp_k_steps(cfg):
@@ -600,8 +615,60 @@ def plain_steps(q_int, statics, dt, cfg, k):
                                 iprm.ctypes.data, fprm.ctypes.data,
                                 float(dt), stream)
     _build.check(lib, rc, "gf_plain_steps")
-    LAUNCHES["plain_steps" if k == K_MULTI else "plain_steps_rem"] += 1
+    LAUNCHES["plain_steps" if k == _plain_k_steps(cfg)
+             else "plain_steps_rem"] += 1
     return out
+
+
+def _plain_sweeps(q_int, statics, dt, cfg, n, k):
+    """Launch ``n >= 1`` plain steps through the C sweep entry
+    (``gf_plain_sweeps``, or ``gf_plain_sweeps_bc`` where the boundary
+    kernel covers ``cfg``): ``n // k`` sweeps of ``k`` and one of ``n mod
+    k``, on two fresh buffers.  The C entry refuses a depth outside
+    ``1.._k_steps(cfg)``, and the refusal raises here.  Returns the new
+    state."""
+    _, nx, ny = q_int.shape
+    bc = () if _periodic_kernel_ok(cfg) else _bc_params(cfg)
+    entry = "gf_plain_sweeps_bc" if bc else "gf_plain_sweeps"
+    iprm, fprm = _kernel_params(cfg)
+    d0, _ = mc_directions(cfg.MC_order)
+    bufs = torch.empty((2 if n > k else 1, 3, nx, ny), dtype=q_int.dtype,
+                       device=q_int.device)
+    lib = _build.load()
+    with torch.cuda.device(q_int.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(
+            q_int.data_ptr(), statics.data_ptr(), bufs[0].data_ptr(),
+            bufs[-1].data_ptr(), nx, ny, n, k, d0, iprm.ctypes.data,
+            fprm.ctypes.data, *(b.ctypes.data for b in bc), float(dt),
+            stream)
+    _build.check(lib, rc, entry)
+    full, rem = divmod(n, k)
+    for depth, count in ((k, full), (rem, int(rem > 0))):
+        LAUNCHES["plain_steps_bc" if bc else "plain_steps"
+                 if depth == _plain_k_steps(cfg) else "plain_steps_rem"] \
+            += count
+    return bufs[(full + (rem > 0) - 1) % 2]
+
+
+def plain_sweeps(q_int, statics, dt, cfg, n):
+    """``n`` plain periodic steps in one C call.
+
+    ``n // k`` sweeps of ``k = _plain_k_steps(cfg)`` steps and one of
+    ``n mod k``, each a launch that advances every tile that many steps on
+    chip, reading one buffer and writing the other.  The result equals
+    ``n`` launches of :func:`fused_step` bit for bit.  The input is not
+    modified.  ``q_int``: (3, nx, ny), ``statics``: (8, nx, ny).  CUDA
+    tensors (float32) launch the kernel; CPU tensors run
+    :func:`plain_steps_ref`.
+    """
+    if _on_cpu(q_int):
+        return plain_steps_ref(q_int, statics, dt, cfg, n)
+    _periodic_gate(cfg)
+    _check_cuda(q_int, statics)
+    if n == 0:
+        return q_int
+    return _plain_sweeps(q_int, statics, dt, cfg, n, _plain_k_steps(cfg))
 
 
 def plain_run(q_int, statics, dt, cfg, n, blocks=0):
@@ -755,6 +822,26 @@ def plain_steps_bc(q_int, statics_g, dt, cfg, k):
     return out
 
 
+def plain_sweeps_bc(q_int, statics_g, dt, cfg, n):
+    """``n`` plain steps on D/N, thinning or periodic edges in one C call.
+
+    ``n // k`` sweeps of ``k = _plain_k_steps(cfg)`` steps and one of
+    ``n mod k``, each tile advanced on chip with its ghosts refilled after
+    every pass and average.  The result equals ``n`` launches of
+    :func:`fused_step_bc` bit for bit.  The input is not modified.
+    ``q_int``: (3, nx, ny); ``statics_g``: (8, nx+2, ny+2).  CUDA tensors
+    (float32) launch the kernel; CPU tensors run
+    :func:`plain_steps_bc_ref`.
+    """
+    if _on_cpu(q_int):
+        return plain_steps_bc_ref(q_int, statics_g, dt, cfg, n)
+    _bc_gate(cfg)
+    _check_cuda(q_int, statics_g, ghosted=True)
+    if n == 0:
+        return q_int
+    return _plain_sweeps(q_int, statics_g, dt, cfg, n, _plain_k_steps(cfg))
+
+
 # ---------------------------------------------------------------------------
 # Drivers on ghost-inclusive arrays
 # ---------------------------------------------------------------------------
@@ -804,40 +891,35 @@ def _plain_run_fits(nx, ny, device):
 
 def _plain_route(cfg, nx, ny, n_steps, device):
     """The launches of a plain (uncompensated) run of ``n_steps``, in the
-    JAX package's escalation: ``(entry, k, n_sweeps, n_rem)``.
+    JAX package's escalation: ``(entry, k, n_sweeps, n_rem)``, ``entry``
+    the :data:`LAUNCHES` key of the full sweeps.
 
     Periodic edges without thinning: the whole run in one
     :func:`plain_run` where it fits the L2 cache and ``n_steps > 1``
-    (``("plain_run", n_steps, 1, 0)``), else ``n_sweeps`` launches of
-    :func:`plain_steps` with ``k = K_MULTI`` and one with ``k = n_rem``.
-    Other edges: ``n_sweeps`` launches of :func:`plain_steps_bc` with
-    ``k = _k_steps(cfg)``, then ``n_rem`` of :func:`fused_step_bc`.
+    (``("plain_run", n_steps, 1, 0)``), else one C call of
+    :func:`plain_sweeps`: ``n_sweeps`` sweeps of ``k = _plain_k_steps(cfg)``
+    steps and, where ``n_rem`` is not 0, one sweep of ``n_rem``.  Other
+    edges: the same through :func:`plain_sweeps_bc`.
     """
     if _periodic_kernel_ok(cfg):
         if n_steps > 1 and _plain_run_fits(nx, ny, device):
             return "plain_run", n_steps, 1, 0
-        return ("plain_steps", K_MULTI) + divmod(n_steps, K_MULTI)
-    k = _k_steps(cfg)
-    return ("plain_steps_bc", k) + divmod(n_steps, k)
+        entry = "plain_steps"
+    else:
+        entry = "plain_steps_bc"
+    k = _plain_k_steps(cfg)
+    return (entry, k) + divmod(n_steps, k)
 
 
 def _plain_loop(cfg, q_int, st, dt, n_steps):
     """The plain run of ``n_steps`` on the interior state, by
-    :func:`_plain_route`."""
+    :func:`_plain_route`: one launch or one C call."""
     nx, ny = q_int.shape[1:]
-    entry, k, n_sweeps, n_rem = _plain_route(cfg, nx, ny, n_steps,
-                                             q_int.device)
+    entry, k, _, _ = _plain_route(cfg, nx, ny, n_steps, q_int.device)
     if entry == "plain_run":
         return plain_run(q_int, st, dt, cfg, k)
-    if entry == "plain_steps":
-        for _ in range(n_sweeps):
-            q_int = plain_steps(q_int, st, dt, cfg, k)
-        return plain_steps(q_int, st, dt, cfg, n_rem) if n_rem else q_int
-    for _ in range(n_sweeps):
-        q_int = plain_steps_bc(q_int, st, dt, cfg, k)
-    for _ in range(n_rem):
-        q_int = fused_step_bc(q_int, st, dt, cfg)
-    return q_int
+    sweeps = plain_sweeps if entry == "plain_steps" else plain_sweeps_bc
+    return sweeps(q_int, st, dt, cfg, n_steps)
 
 
 def make_pallas_step(cfg, nx, ny, dtype=torch.float32):
@@ -873,9 +955,10 @@ def make_pallas_loop(cfg, nx, ny, dtype=torch.float32, compensated=False,
     once; between steps q stays in the interior layout.
     ``compensated=False`` takes the plain whole-run kernels of
     :func:`_plain_route`: on periodic edges the whole run in one launch
-    where it fits the L2 cache, else sweeps of ``K_MULTI`` temporally
-    blocked steps and one launch for the remainder; on other edges sweeps
-    of :func:`_k_steps` steps and the one-step kernel for the remainder.
+    where it fits the L2 cache, else one C call of :func:`plain_sweeps`
+    (sweeps of :func:`_plain_k_steps` temporally blocked steps and one of
+    the remainder); on other edges the same through
+    :func:`plain_sweeps_bc`.
     ``compensated=True`` accumulates the increments with a Kahan carry
     ``(q, q_lo)``, which float32 runs need near steady state, where
     per-step increments fall below one ulp of the density: the whole run

@@ -76,15 +76,50 @@ def ptxas_report(build):
                   + line.split("ptxas info    : ")[-1].strip())
 
 
-def sass_report(lib_path):
-    """Innermost loops holding a MUFU in each GP kernel's SASS."""
+# instruction classes of a SASS count: opcode prefixes, first match wins
+SASS_CLASSES = (
+    ("MUFU", ("MUFU",)),
+    ("FP32", ("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP", "FSET",
+              "FCHK", "FRND", "FSWZADD")),
+    ("LDS/STS", ("LDS", "STS")),
+    ("SHFL", ("SHFL",)),
+    ("LDG/STG", ("LDG", "STG", "LD.", "ST.")),
+    ("LDL/STL", ("LDL", "STL")),
+    ("BAR", ("BAR",)),
+    ("branch", ("BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "BREAK",
+                "WARPSYNC", "BMOV")),
+)
+
+
+def sass_class(text):
+    """The class of one SASS instruction (predicate stripped): a
+    SASS_CLASSES name, else "int/other" (integer, address, conversion,
+    move, vote, predicate logic)."""
+    op = text.split()[1] if text.startswith("@") else text.split()[0]
+    for name, prefixes in SASS_CLASSES:
+        if op.startswith(prefixes):
+            return name
+    return "int/other"
+
+
+def sass_report(lib_path, select=lambda name: "gp" in name, loop=None,
+                classes=False):
+    """Innermost loops of each selected function in the SASS of
+    ``lib_path`` (a shared library or a cubin): by default the GP kernels'
+    loops that hold a MUFU (the training-point loops), with their
+    instructions, MUFU, LDS and the local loads and stores; ``loop``
+    selects loops by their instruction list instead, and ``classes``
+    prints every loop's count per SASS_CLASSES class."""
+    if loop is None:
+        def loop(body):
+            return any("MUFU" in t for t in body)
     cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) \
         / "bin" / "cuobjdump"
     out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                          capture_output=True, text=True).stdout
     for fn in re.split(r"\n\s*Function : ", out)[1:]:
         name = fn.split("\n", 1)[0].strip()
-        if "gp" not in name:
+        if not select(name):
             continue
         ins = []
         for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn):
@@ -94,7 +129,7 @@ def sass_report(lib_path):
             b = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
             if b and int(b.group(1), 16) <= addr:
                 body = [t for a, t in ins if int(b.group(1), 16) <= a <= addr]
-                if any("MUFU" in t for t in body):
+                if loop(body):
                     loops.append((int(b.group(1), 16), addr, body))
         inner = [lp for lp in loops
                  if not any(o is not lp and lp[0] <= o[0] and o[1] <= lp[1]
@@ -106,6 +141,13 @@ def sass_report(lib_path):
               f"LDL {count([t for _, t in ins], 'LDL')}, "
               f"STL {count([t for _, t in ins], 'STL')}")
         for a, b, body in inner:
+            if classes:
+                n = {}
+                for t in body:
+                    n[sass_class(t)] = n.get(sass_class(t), 0) + 1
+                print(f"  loop {a:#06x}-{b:#06x}: {len(body)} instructions: "
+                      + ", ".join(f"{k} {v}" for k, v in sorted(n.items())))
+                continue
             print(f"  loop {a:#06x}-{b:#06x}: {len(body)} instructions, "
                   f"MUFU {count(body, 'MUFU')}, "
                   f"LDS {count(body, 'LDS')}, LDL {count(body, 'LDL')}, "

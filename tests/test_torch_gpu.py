@@ -364,7 +364,7 @@ def test_comp_sweep_depth_outside_range_raises(cuda, case):
 @pytest.mark.parametrize("k", [1, 2, 3, 4])
 def test_plain_steps_match_k1(cuda_problem, k):
     """K2p/Ke: k steps in one launch equal k launches of K1 bit for bit,
-    and the twin within 1e-5 (40 x 72: ragged 32 x 32 tiles)."""
+    and the twin within 1e-5 (40 x 72: ragged tiles)."""
     cfg = cuda_problem._solver_cfg
     q, st, dt = _inputs(cuda_problem)
     ref = q
@@ -372,7 +372,8 @@ def test_plain_steps_match_k1(cuda_problem, k):
         ref = S.fused_step(ref, st, dt, cfg)
     S.reset_launches()
     out = S.plain_steps(q, st, dt, cfg, k)
-    assert S.LAUNCHES["plain_steps" if k == 4 else "plain_steps_rem"] == 1
+    assert S.LAUNCHES["plain_steps" if k == S._plain_k_steps(cfg)
+                      else "plain_steps_rem"] == 1
     assert torch.equal(out, ref)
     assert kernel_vs_plain_err(out, S.plain_steps_ref(q, st, dt, cfg,
                                                       k)) < 1e-5
@@ -434,15 +435,89 @@ def test_plain_steps_bc_match_k3(cuda, case, ny):
             out, S.plain_steps_bc_ref(q, st, dt, cfg, k)) < 1e-5
 
 
+def _plain_route(case):
+    """(inputs, one-step kernel, sweeps wrapper) of a case."""
+    if case == "periodic":
+        return _inputs, S.fused_step, S.plain_sweeps
+    return _ghosted_inputs, S.fused_step_bc, S.plain_sweeps_bc
+
+
+def _plain_launches(case, cfg, n, k):
+    """The launch counts of n plain steps in sweeps of k: every sweep as
+    plain_steps_bc on D/N edges; on periodic ones a sweep of the main
+    path's depth as plain_steps, any other as plain_steps_rem."""
+    full, rem = divmod(n, k)
+    if case != "periodic":
+        return {"plain_steps_bc": full + (rem > 0)}
+    got = {}
+    for depth, count in ((k, full), (rem, int(rem > 0))):
+        key = ("plain_steps" if depth == S._plain_k_steps(cfg)
+               else "plain_steps_rem")
+        got[key] = got.get(key, 0) + count
+    return {key: v for key, v in got.items() if v}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case, ny", COMP_CASES)
+def test_plain_sweeps_match_one_step_kernel(cuda, case, ny):
+    """K2p/Ke/K3p in one C call: n = 1..KMAX and 2 KMAX + 1 steps in
+    sweeps of the main path's depth, and 2 KMAX + 1 steps in sweeps of
+    every depth k through the C entry, equal n launches of K1 or K3 bit
+    for bit on the ragged 40 x 72 grid and on 1D grids, periodic, every
+    D/N layout and Eyring thinning; the launches are counted per sweep
+    and the input is left untouched."""
+    p = _comp_problem(case, ny)
+    cfg = p._solver_cfg
+    inputs, once, sweeps = _plain_route(case)
+    q, st, dt = inputs(p)
+    q0 = q.clone()
+    kmax = S._k_steps(cfg)
+    refs = [q]
+    for _ in range(2 * kmax + 1):
+        refs.append(once(refs[-1], st, dt, cfg))
+    for n in [*range(1, kmax + 1), 2 * kmax + 1]:
+        S.reset_launches()
+        out = sweeps(q, st, dt, cfg, n)
+        assert {k: v for k, v in S.LAUNCHES.items() if v} == \
+            _plain_launches(case, cfg, n, S._plain_k_steps(cfg))
+        assert torch.equal(out, refs[n]), n
+    n = 2 * kmax + 1
+    for k in range(1, kmax + 1):
+        S.reset_launches()
+        out = S._plain_sweeps(q, st, dt, cfg, n, k)
+        assert {k: v for k, v in S.LAUNCHES.items() if v} == \
+            _plain_launches(case, cfg, n, k)
+        assert torch.equal(out, refs[n]), k
+    assert torch.equal(q, q0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["periodic", "dn_x", "asperity_eyring"])
+def test_plain_sweep_depth_outside_range_raises(cuda, case):
+    """A plain sweep of 0 or KMAX + 1 steps: the C entry refuses it and
+    the error raises; nothing is counted, nothing falls back."""
+    p = _comp_problem(case)
+    cfg = p._solver_cfg
+    inputs, _, _ = _plain_route(case)
+    q, st, dt = inputs(p)
+    entry = "gf_plain_sweeps" if case == "periodic" else "gf_plain_sweeps_bc"
+    S.reset_launches()
+    for k in (0, S._k_steps(cfg) + 1):
+        with pytest.raises(RuntimeError, match=entry):
+            S._plain_sweeps(q, st, dt, cfg, 4, k)
+    assert not any(S.LAUNCHES.values())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("grid, n, want", [
     ("", 9, {"plain_run": 1}),
-    ("dn_x", 9, {"plain_steps_bc": 2, "fused_step_bc": 1}),
-    ("dn_x_barus_eyring", 9, {"plain_steps_bc": 4, "fused_step_bc": 1})])
+    ("dn_x", 9, {"plain_steps_bc": 5}),
+    ("dn_x_barus_eyring", 9, {"plain_steps_bc": 9})])
 def test_plain_loop_takes_the_plain_kernels(cuda, grid, n, want):
     """run_steps_fast(compensated=False) reaches the plain kernels (40 x
-    72 fits the L2 cache: one Kv launch) and agrees with K1 or K3 once
-    per step."""
+    72 fits the L2 cache: one Kv launch; on D/N edges one C call of
+    sweeps, 2 steps deep and a remainder sweep, 1 deep with thinning, no
+    one-step kernel) and agrees with K1 or K3 once per step."""
     p = _problem(*(BC_CASES[grid] if grid else ("",)))
     S.reset_launches()
     p.run_steps_fast(n, compensated=False)

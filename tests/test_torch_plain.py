@@ -14,9 +14,11 @@ Nx 32, Ny 128 (the JAX kernels need a width that is a multiple of 128):
   Eyring thinning (one sweep of 2);
 - the slice: ``Problem.run_steps_fast(9, compensated=False)`` on the CPU
   at float64 against 9 steps of the JAX ``make_det_step``, < 1e-10, on
-  periodic edges (the whole run in one Kv call), D/N x edges (2 sweeps
-  and 1 remainder step) and with thinning (4 sweeps and 1);
-- the routing of ``make_pallas_loop(compensated=False)`` and its L2 gate,
+  periodic edges (the whole run in one Kv call), D/N x edges (4 sweeps
+  of 2 and a remainder sweep of 1) and with thinning (9 sweeps of 1),
+  and the one-call sweep wrappers' CPU path the same way;
+- the routing of ``make_pallas_loop(compensated=False)`` (the measured
+  sweep depths, the remainder sweep) and its L2 gate,
   ``validate.pallas_vs_xla_err`` on the twins, and the wrappers taking
   their twins only for CPU tensors.
 
@@ -182,13 +184,38 @@ def test_run_steps_fast_plain_matches_det_step(case):
                                                "cpu")
     assert (entry, k, n_sweeps, n_rem) == {
         "periodic": ("plain_run", 9, 1, 0),
-        "dn_x": ("plain_steps_bc", 4, 2, 1),
-        "dn_x_barus_eyring": ("plain_steps_bc", 2, 4, 1)}[case]
+        "dn_x": ("plain_steps_bc", 2, 4, 1),
+        "dn_x_barus_eyring": ("plain_steps_bc", 1, 9, 0)}[case]
     S.reset_launches()
     tp.run_steps_fast(9, dtype=torch.float64, compensated=False)
     assert not any(S.LAUNCHES.values())
     assert tp.step == 9
     assert scaled_err(tp.q, js.q) < 1e-10
+
+
+@pytest.mark.parametrize("case", ["periodic", "dn_x", "dn_x_barus_eyring"])
+def test_plain_sweeps_cpu_path_matches_det_step(case):
+    """The one-call sweep wrappers (``plain_sweeps``, ``plain_sweeps_bc``)
+    on CPU tensors (their twins) over n = 9 steps against 9 JAX reference
+    steps, float64, < 1e-10 scaled on the interior; nothing launches."""
+    text = yaml(*BC_CASES[case]) if case != "periodic" else yaml()
+    jp, js, ts = states(text, amp=1e-3)
+    cfg = port_cfg(text)
+    q = ts.q[:, 1:-1, 1:-1].contiguous()
+    if case == "periodic":
+        st = S.interior_statics(ts.topo, ts.extra, torch.float64, "cpu")
+        sweeps = S.plain_sweeps
+    else:
+        st = S.ghost_statics(ts.topo, ts.extra, torch.float64, "cpu")
+        sweeps = S.plain_sweeps_bc
+    jstep = jmake_det_step(jp._solver_cfg, with_aux=False)
+    for _ in range(9):
+        js = jstep(js)
+    S.reset_launches()
+    out = sweeps(q, st, float(ts.dt), cfg, 9)
+    assert not any(S.LAUNCHES.values())
+    assert scaled_err(out, np.asarray(js.q)[:, 1:-1, 1:-1]) < 1e-10
+    assert scaled_err(out, q) > 1e-6             # the state moved
 
 
 def test_plain_route_and_l2_gate():
@@ -201,18 +228,23 @@ def test_plain_route_and_l2_gate():
     assert not S._plain_run_fits(2048, 2048, "cpu")
     per = port_cfg(yaml())
     route = S._plain_route
+    # the measured depths: 2 steps a sweep, 1 with shear thinning; the
+    # deepest sweep stays the JAX package's K_MULTI (2 with thinning)
+    assert S._plain_k_steps(per) == 2 and S._k_steps(per) == S.K_MULTI
     assert route(per, 512, 512, 5000, "cpu") == ("plain_run", 5000, 1, 0)
-    assert route(per, 1024, 1024, 5000, "cpu") == ("plain_steps", 4, 1250,
+    assert route(per, 1024, 1024, 5000, "cpu") == ("plain_steps", 2, 2500,
                                                    0)
-    assert route(per, 2048, 2048, 4098, "cpu") == ("plain_steps", 4, 1024,
-                                                   2)
-    # one step: no whole-run launch, one remainder launch (JAX: call_ext)
-    assert route(per, 512, 512, 1, "cpu") == ("plain_steps", 4, 0, 1)
-    for case, k in (("dn_x", 4), ("dn_all_asymmetric", 4),
-                    ("dn_x_barus_eyring", 2), ("periodic_eyring", 2)):
+    # a remainder sweep of one step after 2 of 2 (JAX: call_ext)
+    assert route(per, 2048, 2048, 5003, "cpu") == ("plain_steps", 2, 2501,
+                                                   1)
+    # one step: no whole-run launch, one remainder sweep
+    assert route(per, 512, 512, 1, "cpu") == ("plain_steps", 2, 0, 1)
+    for case, k in (("dn_x", 2), ("dn_all_asymmetric", 2),
+                    ("dn_x_barus_eyring", 1), ("periodic_eyring", 1)):
         cfg = port_cfg(yaml(*BC_CASES[case]))
-        assert route(cfg, 512, 512, 10, "cpu") == ("plain_steps_bc", k,
-                                                   10 // k, 10 % k)
+        assert S._plain_k_steps(cfg) == k
+        assert route(cfg, 512, 512, 11, "cpu") == ("plain_steps_bc", k,
+                                                   11 // k, 11 % k)
     # mixed per-component edges keep the mixed driver (K4)
     from gapflow_torch.ops.mixed_bc import mixed_supported
     mixed = port_cfg(yaml(MIXED_CASES["x_mixed"]))
