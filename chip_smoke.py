@@ -35,12 +35,17 @@ K3 launched once per step (2i), then drive bench.py's FV throughput run
 1024² and 2048², each beside K1 once per step) and the plain boundary
 paths (3p).  The compensated sweeps (K2c, K3c), which carry the main
 paths 3-3c a chunk per C call, are held bit for bit against the
-one-step compensated kernels, q and q_lo (2i).  The shard kernel K9 is held bit for bit against its twin
-on every edge-flag pattern of a 2 x 2 and a 1 x 4 mesh (2s);
-``Problem.run_steps_sharded`` drives the four-edge D/N journal at 1024²
-on 1 x 1, 2 x 2 and 2 x 4 meshes of cuda:0 shards and the periodic
-journal on 2 x 2, each bit for bit against the serial route, and the
-sharded EHL loop at 512², held against its float64 route (3s).  Any failed
+one-step compensated kernels, q and q_lo (2i).  The EHL kernel K8 is
+held against its twins and bit for bit against K1 on the statics they
+form, with and without the reference shift (2h, 3j, 5).  The shard kernel
+K9 is held bit for bit against its twin on every edge-flag pattern of a
+2 x 2 and a 1 x 4 mesh, and the k-step shard sweep that the sharded
+loops run against k K9 launches and its twin at k = 1..4, and on 1D
+blocks against the serial sweep (2s); ``Problem.run_steps_sharded``
+drives the four-edge D/N journal at 1024² on 1 x 1, 2 x 2 and 2 x 4
+meshes of cuda:0 shards at every timed depth and the periodic journal
+on 2 x 2, each bit for bit against the serial route, and the sharded
+EHL loop at 512², held against its float64 route (3s).  Any failed
 phase raises, which exits non-zero before the result line.
 Without CUDA, or without the package beside it, the script fails the
 same way.
@@ -107,10 +112,11 @@ OPS_PER_CELL = 300
 # depth 1 (shear thinning).
 COMP_OPS_PER_CELL = OPS_PER_CELL + 12
 # FP32 operations per cell of the statics the EHL kernel K8 forms from the
-# deformed gap (csrc/stencil_ehl.cu EhlStatics::load, once per cell): two
-# differences and their scalings, 4 Ls + H, 3 Ls + H, two divisions, 2 Ls,
-# 6 Ls and the three products of 2 (3 Ls + H) ic ic.
-EHL_STATICS_OPS = 15
+# undeformed gap and the deformation (csrc/stencil_ehl.cu EhlStat::load;
+# the least the work needs, once per cell): the gap h_und + (u - u00), two
+# differences and their scalings, 4 Ls + H, 3 Ls + H, two divisions,
+# 2 Ls, 6 Ls and the three products of 2 (3 Ls + H) ic ic.
+EHL_STATICS_OPS = 17
 
 _BAYADA = ("EOS: Bayada, rho0: 850., rho_l: 850., rho_v: 0.019, "
            "c_l: 1600., c_v: 352.")
@@ -292,6 +298,30 @@ def time_ms(fn, reps):
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps, spin_s=0.2):
+    """Device time per call of ``fn``: events around ``reps`` calls
+    enqueued behind a spin kernel of ``spin_s`` seconds, so that the card
+    runs them back to back however long the host takes to launch each
+    (a launch shorter than its wrapper's host work is timed right).
+    Raises if the host took longer to enqueue them than the spin lasted."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(spin_s * 1.98e9))     # cycles at the boost clock
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if host >= spin_s / 2:
+        raise RuntimeError(f"queued_ms: enqueueing took {host:.3f} s, not "
+                           f"well inside the {spin_s} s spin")
     return start.elapsed_time(end) / reps
 
 
@@ -1103,26 +1133,24 @@ def ehl_journal(n, V=0., max_it=1000000, dtype=None):
 
 def ehl_run_inputs(p):
     """K8's inputs on a Problem's current state and deformation state,
-    float32 on the card: interior q, the deformed interior gap, the slip
-    length, the patches px, py, dt; and the ghost-inclusive pressure the
-    deformation step takes."""
+    float32 on the card: interior q, the ghost-inclusive undeformed gap
+    and deformation, the slip length, dt, the reference shift; and the
+    ghost-inclusive pressure the deformation step takes."""
+    from gapflow_torch.core.ehl import _elastic
     from gapflow_torch.core.gp_step import _wrap_pad
     from gapflow_torch.models.eos import eos_pressure
-    from gapflow_torch.ops import stencil as S
     f32 = torch.float32
     cfg = p._solver_cfg
-    ed = p.topo.ElasticDeformation
     q = p._tensor(p.q).to(f32)[:, 1:-1, 1:-1].contiguous()
-    h_full = p._tensor(p.topo.h_undeformed).to(f32) + ed.u_prev.to(f32)
+    hu = p._tensor(p.topo.h_undeformed).to(f32).contiguous()
+    u = p.topo.ElasticDeformation.u_prev.to(f32).contiguous()
     ls = p._tensor(p.fc.get_real_field("extra").p[0, 1:-1, 1:-1]).to(f32) \
         .contiguous()
-    px, py = S.ehl_patches(h_full, cfg)
     p_full = _wrap_pad(eos_pressure(q[0], cfg.prop))
-    return (q, h_full[1:-1, 1:-1].contiguous(), ls, px, py,
-            float(np.float32(p.dt)), p_full)
+    return (q, hu, u, ls, float(np.float32(p.dt)), _elastic(p)[2], p_full)
 
 
-def ehl_comp_pair(h, ls, px, py):
+def ehl_comp_pair(hu, u, ls, shift):
     """K8's compensated step and its twin in the form check_comp_steps
     calls (statics argument unused: the kernel forms them)."""
     from gapflow_torch.ops import stencil as S
@@ -1130,22 +1158,41 @@ def ehl_comp_pair(h, ls, px, py):
     def run(step):
         def f(q, lo, _st, dt, cfg, n):
             for _ in range(n):
-                q, lo = step(q, lo, h, ls, px, py, dt, cfg)
+                q, lo = step(q, lo, hu, u, ls, dt, cfg, shift)
             return q, lo
         return f
     return run(S.ehl_comp_step), run(S.ehl_comp_step_ref)
 
 
-def ehl_checks(label, q, h, ls, px, py, dt, cfg):
-    """K8's two entries against their twins: (ehl_step err, ehl_comp_step
-    err), max abs errors."""
+def ehl_checks(label, q, hu, u, ls, dt, cfg, shifts=(False, True)):
+    """K8's two entries against their twins, and bit for bit against K1
+    (and the one-step compensated kernel) on the statics the twins form
+    (``ops.stencil.ehl_statics_ref`` of the shifted gap and its patches),
+    with and without the reference shift: (ehl_step err, ehl_comp_step
+    err), max abs errors against the twins."""
     from gapflow_torch.ops import stencil as S
-    e1 = max(check(f"{label}: ehl_step emit_delta={d}",
-                   S.ehl_step(q, h, ls, px, py, dt, cfg, emit_delta=d),
-                   S.ehl_step_ref(q, h, ls, px, py, dt, cfg, emit_delta=d))
-             for d in (False, True))
-    e2 = check_comp_steps(f"{label}: ehl_comp_step", *ehl_comp_pair(
-        h, ls, px, py), q, torch.zeros_like(q), None, dt, cfg)
+    e1 = e2 = 0.
+    lo = (torch.rand(q.shape, generator=torch.Generator().manual_seed(1))
+          .to(q.device) - 0.5) * 1e-6 * q.abs()
+    for shift in shifts:
+        tag = f"{label}, shift_ref {shift}"
+        e1 = max(e1, *(check(f"{tag}: ehl_step emit_delta={d}",
+                             S.ehl_step(q, hu, u, ls, dt, cfg, d, shift),
+                             S.ehl_step_ref(q, hu, u, ls, dt, cfg, d,
+                                            shift))
+                       for d in (False, True)))
+        e2 = max(e2, check_comp_steps(f"{tag}: ehl_comp_step",
+                                      *ehl_comp_pair(hu, u, ls, shift), q,
+                                      torch.zeros_like(q), None, dt, cfg))
+        st = S._ehl_statics_of(hu, u, ls, cfg, shift).contiguous()
+        check_equal(f"{tag}: ehl_step vs K1 on the twins' statics",
+                    S.ehl_step(q, hu, u, ls, dt, cfg, shift_ref=shift),
+                    S.fused_step(q, st, dt, cfg))
+        check_equal(f"{tag}: ehl_comp_step vs the one-step compensated "
+                    f"kernel on those statics, q and q_lo (nonzero carry)",
+                    torch.cat(S.ehl_comp_step(q, lo, hu, u, ls, dt, cfg,
+                                              shift)),
+                    torch.cat(S.comp_step_once(q, lo, st, dt, cfg)))
     return e1, e2
 
 
@@ -1209,19 +1256,20 @@ def ehl_main(n, reps=50):
           f"{p.topo.h.min():.4e}..{p.topo.h.max():.4e} m)")
     expect_launches("3j", {"ehl_comp_step": EHL_STEPS})
     check_state("3j", p, EHL_STEPS)
-    q, h, ls, px, py, dt, p_full = ehl_run_inputs(p)
-    errs = ehl_checks("3j final state and deformation", q, h, ls, px, py,
-                      dt, cfg)
+    q, hu, u, ls, dt, shift, p_full = ehl_run_inputs(p)
+    errs = ehl_checks("3j final state and deformation", q, hu, u, ls, dt,
+                      cfg, (shift,))
     from gapflow_torch.ops import stencil as S
     lo = torch.zeros_like(q)
-    k_ms = time_ms(lambda: S.ehl_comp_step(q, lo, h, ls, px, py, dt, cfg),
-                   reps)
+    k_ms = queued_ms(lambda: S.ehl_comp_step(q, lo, hu, u, ls, dt, cfg,
+                                             shift), reps)
     f_ms = deform_ms(p, p_full, reps)
     step_ms = wall / EHL_STEPS * 1e3
     print(f"  3j per step: wall {step_ms:.4f} ms = K8 {k_ms:.4f} ms + "
           f"deformation (FFT pair, fill, relaxation) {f_ms:.4f} ms + rest "
-          f"{step_ms - k_ms - f_ms:.4f} ms (patches, gap, EOS, wrap, host "
-          f"launches); K8 share {k_ms / step_ms:.3f}")
+          f"{step_ms - k_ms - f_ms:.4f} ms (EOS, wrap, host launches; the "
+          f"gap and its patches are formed in K8); K8 share "
+          f"{k_ms / step_ms:.3f}")
     return lau, errs, wall, p
 
 
@@ -2741,10 +2789,11 @@ def shard_problem(n, case=None):
                              dt=2e-11))
 
 
-def shard_blocks(p, shape):
-    """The 2-deep halo blocks, statics and edge flags of each shard of
-    ``p``'s state on a cuda:0 mesh of ``shape`` (float32), as the
-    sharded loop hands them to K9."""
+def shard_blocks(p, shape, k=1, extra=0):
+    """The 2k-deep halo blocks, the statics (2k + ``extra`` deep) and the
+    edge flags of each shard of ``p``'s state on a cuda:0 mesh of
+    ``shape`` (float32), as the sharded loop hands them to the shard
+    kernels (k = 1: K9's 2-deep blocks)."""
     from gapflow_torch.models.closures_opt import precompute_statics
     from gapflow_torch.ops.stencil import _fully_periodic
     from gapflow_torch.parallel.halo import (halo_blocks,
@@ -2756,14 +2805,20 @@ def shard_blocks(p, shape):
     cfg = p._solver_cfg
     mesh = cuda_mesh(shape)
     per = (all(cfg.bc_edge(0)["P"]), all(cfg.bc_edge(2)["P"]))
+    d = 2 * k
 
-    def blocks(a):
-        lay = (pad_blocks2(a, *shape) if _fully_periodic(cfg)
-               else pad_blocks2_bc(a, *shape, *per))
+    def blocks(a, more=extra):
+        lay = (pad_blocks2(a, *shape, d + more) if _fully_periodic(cfg)
+               else pad_blocks2_bc(a, *shape, *per, d + more))
         return split_blocks(lay, mesh, torch.float32)
 
-    q, _, _ = shard_problem_arrays(p, mesh, torch.float32)
-    hb = halo_blocks(q, mesh, 2, cfg)
+    if shape == (1, 1):
+        # the whole domain with its serial ghosts repeated to the depth
+        # (a block may be thinner than its halo, which halo_blocks refuses)
+        hb = blocks(p.q, 0)
+    else:
+        q, _, _ = shard_problem_arrays(p, mesh, torch.float32)
+        hb = halo_blocks(q, mesh, d, cfg)
     t2, e2 = blocks(p.topo.full), blocks(p.fc.get_real_field("extra").p)
     out = []
     for i in range(shape[0]):
@@ -2771,6 +2826,17 @@ def shard_blocks(p, shape):
             out.append((hb[i][j], precompute_statics(t2[i][j][:3], e2[i][j])
                         .contiguous(), shard_flags(cfg, mesh, i, j)))
     return out
+
+
+def held_edge_halo(cfg, q_blk, flags, d):
+    """``q_blk`` with its halo on the domain edges ``flags`` holds
+    rebuilt as ``halo_blocks`` fills it on a mesh: the edge formulas of
+    the block's own lines, x edges first, then y."""
+    from gapflow_torch.ops import stencil as S
+    xe, xw, yn, ys = flags
+    core = q_blk[:, d * xe:q_blk.shape[1] - d * xw,
+                 d * ys:q_blk.shape[2] - d * yn]
+    return S._edge_pad(cfg, core, flags, d).contiguous()
 
 
 def check_equal(label, out, ref):
@@ -2789,7 +2855,12 @@ def shard_kernel_checks():
     """Phase 2s: K9 against its twin on one N_CHECK² block (the perturbed
     four-edge D/N journal with its serial ghosts as the halo), for every
     flag pattern of a 2 x 2 and a 1 x 4 mesh and for zero flags: equal bit
-    for bit.  Returns the max abs error (0)."""
+    for bit; then the shard sweep at every depth k = 1..4 on the same
+    state as a block with a 2k-deep halo (its held edges' halo as the
+    loops fill it), against k one-step K9 launches on the shrinking halo
+    and against its twin, bit for bit, and on 1024 x 1 and 1 x 1024
+    blocks (x D/N, y periodic) against K9 and the serial boundary sweep.
+    Returns (K9's max abs error, the sweep's, the witness launches)."""
     from gapflow_torch.ops import stencil as S
     from gapflow_torch.parallel.pallas_halo import shard_flags
     p = shard_problem(N_CHECK, SHARD_CASE)
@@ -2800,28 +2871,70 @@ def shard_kernel_checks():
         mesh = cuda_mesh(shape)
         patterns |= {shard_flags(cfg, mesh, i, j) for i in range(shape[0])
                      for j in range(shape[1])}
+    reset_all()
     for flags in sorted(patterns):
         check_equal(f"K9 flags (xe, xw, yn, ys) = {flags} vs twin",
                     S.shard_step(q, st, p.dt, cfg, flags),
                     S.shard_step_ref(q, st, p.dt, cfg, flags))
-    return 0.
+    for k in range(1, S.K_MULTI + 1):
+        q, st, _ = shard_blocks(p, (1, 1), k, extra=1)[0]
+        for flags in sorted(patterns):
+            qf = held_edge_halo(cfg, q, flags, 2 * k)
+            out = S.shard_sweep(qf, st, p.dt, cfg, flags, k)
+            check_equal(f"shard sweep k={k} flags {flags} vs {k} K9 "
+                        f"launches", out,
+                        S.shard_steps_once(qf, st, p.dt, cfg, flags, k))
+            check_equal(f"shard sweep k={k} flags {flags} vs twin", out,
+                        S.shard_sweep_ref(qf, st, p.dt, cfg, flags, k))
+    from gapflow_torch.validate import BC_CASES
+    for nx, ny in ((1024, 1), (1, 1024)):
+        pt = perturbed(journal(nx, ny, *BC_CASES["dn_x"], dt=2e-11))
+        ct = pt._solver_cfg
+        for k in range(1, S.K_MULTI + 1):
+            q, st, _ = shard_blocks(pt, (1, 1), k, extra=1)[0]
+            out = S.shard_sweep(q, st, pt.dt, ct, (1, 1, 0, 0), k)
+            check_equal(f"shard sweep k={k} on a {nx} x {ny} block vs {k} "
+                        f"K9 launches", out,
+                        S.shard_steps_once(q, st, pt.dt, ct, (1, 1, 0, 0),
+                                           k))
+            d = 2 * k + 1
+            check_equal(f"shard sweep k={k} on a {nx} x {ny} block vs the "
+                        f"serial boundary sweep", out, S.plain_steps_bc(
+                            q[:, d - 1:1 - d, d - 1:1 - d].contiguous(),
+                            st[:, d - 1:1 - d, d - 1:1 - d].contiguous(),
+                            pt.dt, ct, k))
+    torch.cuda.synchronize()
+    lau = launched()
+    print(f"  2s launches (witnesses): {lau}")
+    return 0., 0., lau
 
 
-def drive_sharded(label, p, n, shape, **kw):
+def sweeps(n, k, every=None):
+    """Shard sweeps per shard of an n-step sharded run, k steps per
+    exchange, in chunks of ``every`` steps (the sharded EHL loop's
+    deformation interval)."""
+    every = every or n
+    return (n // every) * -(-every // k)
+
+
+def drive_sharded(label, p, n, shape, every=None, **kw):
     """run_steps_sharded(n) on a cuda:0 mesh of ``shape`` with the launch
-    counts set to 0 just before it: K9 once per shard and step.  Returns
-    (launches, wall s)."""
+    counts set to 0 just before it: the shard sweep once per shard and
+    exchange of a 2k-deep halo, k = ``parallel.pallas_halo.SHARD_K``
+    (chunks of ``every`` steps).  Returns (launches, wall s)."""
+    from gapflow_torch.parallel import pallas_halo as PH
     reset_all()
     t0 = time.perf_counter()
     p.run_steps_sharded(n, cuda_mesh(shape), **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     lau = launched()
-    print(f"  {label} on {shape[0]} x {shape[1]} cuda:0 shards: launches "
-          f"{lau}, {wall / n * 1e3:.4f} ms per step")
-    expect_launches(label, {"shard_step": n * shape[0] * shape[1]})
+    print(f"  {label} on {shape[0]} x {shape[1]} cuda:0 shards, k = "
+          f"{PH.SHARD_K}: launches {lau}, {wall / n * 1e3:.4f} ms per step")
+    expect_launches(label, {"shard_sweep": sweeps(n, PH.SHARD_K, every)
+                            * shape[0] * shape[1]})
     check_state(label, p, n)
-    return lau["shard_step"], wall
+    return lau["shard_sweep"], wall
 
 
 def timed_run(label, run, n, want):
@@ -2853,25 +2966,26 @@ def device_times(fn, reps):
     return out
 
 
-def k9_ms(times):
-    return sum(v for k, v in times.items() if "shard_step_kernel" in k)
+def k9_ms(times, key="shard_step_kernel"):
+    return sum(v for k, v in times.items() if key in k)
 
 
 def shard_split(p, n_steps=SHARD_SPLIT_STEPS):
     """The time of a 2 x 2 sharded step on ``p``'s state: the host
-    clock's step, and torch.profiler's device time of the K9 launches and
-    of the other kernels (the exchange copies and the statics, computed
-    once per call); the rest is the device's idle time, the host's
-    launches."""
+    clock's step, and torch.profiler's device time of the shard sweeps
+    and of the other kernels (the exchange copies and the statics,
+    computed once per call); the rest is the device's idle time, the
+    host's launches."""
     from gapflow_torch.parallel.halo import (shard_problem_arrays,
                                              split_blocks)
     from gapflow_torch.parallel.pallas_halo import (
-        make_sharded_bc_pallas_loop, pad_blocks2_bc)
+        SHARD_K, make_sharded_bc_pallas_loop, pad_blocks2_bc, statics_depth)
     mesh = cuda_mesh((2, 2))
     n = p.grid["Nx"]
     loop = make_sharded_bc_pallas_loop(p._solver_cfg, mesh, n, n)
     q, _, _ = shard_problem_arrays(p, mesh, torch.float32)
-    t2, e2 = (split_blocks(pad_blocks2_bc(a, 2, 2, False, False), mesh,
+    t2, e2 = (split_blocks(pad_blocks2_bc(a, 2, 2, False, False,
+                                          statics_depth()), mesh,
                            torch.float32)
               for a in (p.topo.full, p.fc.get_real_field("extra").p))
     loop(q, t2, e2, p.dt, 2)
@@ -2885,28 +2999,31 @@ def shard_split(p, n_steps=SHARD_SPLIT_STEPS):
         print(f"  2 x 2 step at {n}²: {step_ms:.4f} ms; device times not "
               f"measured (the profiler recorded none)")
         return
-    k9 = k9_ms(dev) / n_steps
+    key = "shard_sweep_kernel"
+    k9 = k9_ms(dev, key) / n_steps
     other = sum(dev.values()) / n_steps - k9
-    top = sorted(((v, k) for k, v in dev.items()
-                  if "shard_step_kernel" not in k), reverse=True)[:3]
-    print(f"  2 x 2 step at {n}², {n_steps} steps: {step_ms:.4f} ms = K9 "
-          f"{k9:.4f} ms (4 launches, device time by torch.profiler) + other "
-          f"kernels {other:.4f} ms (exchange copies, statics; "
+    top = sorted(((v, k) for k, v in dev.items() if key not in k),
+                 reverse=True)[:3]
+    print(f"  2 x 2 step at {n}², {n_steps} steps, k = {SHARD_K}: "
+          f"{step_ms:.4f} ms = shard sweeps {k9:.4f} ms (4 launches per "
+          f"{SHARD_K} steps, device time by torch.profiler) + other kernels "
+          f"{other:.4f} ms (exchange copies, statics; "
           + ", ".join(f"{k[:36]} {v / n_steps:.4f}" for v, k in top)
           + f") + device idle {step_ms - k9 - other:.4f} ms (host "
-          f"launches); K9 share {k9 / step_ms:.3f}, idle share "
+          f"launches); sweep share {k9 / step_ms:.3f}, idle share "
           f"{(step_ms - k9 - other) / step_ms:.3f}")
 
 
 def sharded_ehl_check():
     """Phase 3s, the sharded EHL loop: run_steps_sharded on the perturbed
     SHARD_EHL_N² EHL journal, 2 x 2 cuda:0 shards, deform_every
-    SHARD_EHL_EVERY (K9 with zero flags once per shard and step), held
+    SHARD_EHL_EVERY (the shard sweep with zero flags once per shard and
+    exchange), held
     route against route: its distance from the same route in float64
     (its twins on the card) at most SHARD_EHL_FACTOR times the serial
     float32 EHL loop's (plain step) distance from its float64 run.
-    All four start from the perturbed state of phase 2.  Returns K9's
-    launches."""
+    All four start from the perturbed state of phase 2.  Returns the
+    shard sweep's launches."""
     from gapflow_torch.core.ehl import make_ehl_loop
     from gapflow_torch.ops import stencil as S
     from gapflow_torch.parallel.ehl import make_sharded_ehl_loop
@@ -2915,12 +3032,12 @@ def sharded_ehl_check():
     n, steps, K = SHARD_EHL_N, SHARD_STEPS, SHARD_EHL_EVERY
     p = perturbed(ehl_journal(n))
     lau, wall = drive_sharded(f"sharded EHL loop {n}², deform_every {K}",
-                              p, steps, (2, 2), deform_every=K)
+                              p, steps, (2, 2), every=K, deform_every=K)
     runs = {"sharded f32": torch.as_tensor(p.q[:, 1:-1, 1:-1])}
     p64 = perturbed(ehl_journal(n, dtype=torch.float64))
     mesh = cuda_mesh((2, 2))
     loop = make_sharded_ehl_loop(p64, mesh, K, use_pallas=True,
-                                 step_fn=S.shard_step_ref)
+                                 sweep_fn=S.shard_sweep_ref)
     q, _, _ = shard_problem_arrays(p64, mesh)
     u = p64.topo.ElasticDeformation.u_prev
     runs["sharded f64"] = gather(timed_run(
@@ -2939,7 +3056,8 @@ def sharded_ehl_check():
     runs = {k: v.to("cpu", torch.float64) for k, v in runs.items()}
     d_sh = kernel_vs_plain_err(runs["sharded f32"], runs["sharded f64"])
     d_se = kernel_vs_plain_err(runs["serial f32"], runs["serial f64"])
-    print(f"  sharded f32 (K9) vs its float64 twin route {d_sh:.3e} scaled; "
+    print(f"  sharded f32 (shard sweep) vs its float64 twin route "
+          f"{d_sh:.3e} scaled; "
           f"serial f32 plain step vs float64 {d_se:.3e} (limit "
           f"{SHARD_EHL_FACTOR:g} x); sharded vs serial: float64 "
           f"{kernel_vs_plain_err(runs['sharded f64'], runs['serial f64']):.3e}"
@@ -2952,13 +3070,19 @@ def sharded_ehl_check():
     return lau
 
 
+SHARD_DEPTHS = (2, 3, 4)     # phase 3s: the depths timed per step
+
+
 def sharded_phase():
     """Phase 3s: Problem.run_steps_sharded on cuda:0 meshes.  The
     perturbed four-edge D/N journal at N², SHARD_STEPS steps, on each of
-    SHARD_MESHES, equal bit for bit to the serial plain boundary route
-    (K3p sweeps); the periodic journal on 2 x 2, equal bit for bit to K1
-    once per step; the split of a 2 x 2 step; the sharded EHL loop.
-    Returns (K9's launches, the 2 x 2 D/N Problem)."""
+    SHARD_MESHES at each depth of SHARD_DEPTHS (SHARD_K steps per
+    exchange and sweep), equal bit for bit to the serial plain boundary
+    route (K3p sweeps); the periodic journal on 2 x 2, equal bit for bit
+    to K1 once per step; the split of a 2 x 2 step; the sharded EHL loop.
+    The launches counted are those of the runs at the loops' own depth.
+    Returns (the shard sweep's launches, the 2 x 2 D/N Problem)."""
+    from gapflow_torch.parallel import pallas_halo as PH
     from gapflow_torch.parallel.pallas_halo import ici_bytes_per_step
     n, steps = N, SHARD_STEPS
     total = 0
@@ -2966,13 +3090,29 @@ def sharded_phase():
     timed_run(f"serial plain boundary route (K3p), {n}²",
               lambda: ref.run_steps_fast(steps, compensated=False), steps,
               plain_launches(ref._solver_cfg, steps))
-    for shape in SHARD_MESHES:
-        p = shard_problem(n, SHARD_CASE)
-        lau, _ = drive_sharded(f"D/N journal {n}²", p, steps, shape)
-        total += lau
-        check_equal(f"{shape[0]} x {shape[1]} vs serial", p.q, ref.q)
-        if shape == (2, 2):
-            p22 = p
+    k_main = PH.SHARD_K
+    walls = {}
+    try:
+        for k in SHARD_DEPTHS:
+            PH.SHARD_K = k
+            for shape in SHARD_MESHES:
+                p = shard_problem(n, SHARD_CASE)
+                lau, wall = drive_sharded(f"D/N journal {n}²", p, steps,
+                                          shape)
+                walls[k, shape] = wall / steps * 1e3
+                check_equal(f"{shape[0]} x {shape[1]}, k = {k} vs serial",
+                            p.q, ref.q)
+                if k == k_main:
+                    total += lau
+                    if shape == (2, 2):
+                        p22 = p
+    finally:
+        PH.SHARD_K = k_main
+    print("  wall per step (host ms) of the D/N journal, by depth: "
+          + "; ".join(f"{a} x {b}: " + ", ".join(
+              f"k={k} {walls[k, (a, b)]:.4f}" for k in SHARD_DEPTHS)
+              for a, b in SHARD_MESHES)
+          + f" (the loops take k = {k_main})")
     ref = shard_problem(n)
     timed_run(f"periodic journal {n}², K1 once per step",
               lambda: k1_run_steps(ref, steps), steps, {"fused_step": steps})
@@ -2984,43 +3124,63 @@ def sharded_phase():
     for shape in ((2, 2), (2, 4)):
         print(f"  halo copies per shard and step at {n}² on {shape[0]} x "
               f"{shape[1]}: {ici_bytes_per_step(n, n, *shape):.0f} B "
-              f"(2-deep, every step), the queued blocked form "
-              f"{ici_bytes_per_step(n, n, *shape, mode='blocked'):.0f} B "
-              f"(8-deep per 4 steps)")
+              f"({2 * k_main}-deep per {k_main} steps), one 2-deep per step "
+              f"{ici_bytes_per_step(n, n, *shape, mode='step'):.0f} B, the "
+              f"TPU package's blocked loop "
+              f"{ici_bytes_per_step(n, n, *shape, mode='tpu_blocked'):.0f} "
+              f"B (8-deep per 4 steps)")
     total += sharded_ehl_check()
     return total, p22
 
 
 def shard_kernel_times(p, reps=100, plain_reps=5):
     """Phase 5: one 2 x 2 step of K9 on the 3s D/N state at N² (four
-    launches on the shards' halo blocks), held against its twin, timed
-    beside it and its bound.  Returns (max abs err, (ms, twin ms),
-    bound)."""
+    launches on the shards' halo blocks), and SHARD_K steps of the shard
+    sweep (four launches on 2 SHARD_K-deep blocks), each held against its
+    twin, timed beside it and its bound, per step.  Returns {kernel: max
+    abs err}, {kernel: (ms, twin ms)}, {kernel: bound}."""
     from gapflow_torch.ops import stencil as S
-    blocks = shard_blocks(p, (2, 2))
+    from gapflow_torch.parallel.pallas_halo import SHARD_K
     cfg, dt = p._solver_cfg, p.dt
-    err = 0.
-    outs = []
-    for q, st, flags in blocks:
-        out = S.shard_step(q, st, dt, cfg, flags)
-        check_equal(f"K9 flags {flags} (phase 5) vs twin", out,
-                    S.shard_step_ref(q, st, dt, cfg, flags))
-        outs.append(out)
+    errs, times, bounds = {}, {}, {}
+    for key, k, blocks in (
+            ("shard_step", 1, shard_blocks(p, (2, 2))),
+            ("shard_sweep", SHARD_K, shard_blocks(p, (2, 2), SHARD_K))):
+        if key == "shard_step":
+            kern, twin = S.shard_step, S.shard_step_ref
+        else:
+            def kern(q, st, dt_, cfg_, f, k=k):
+                return S.shard_sweep(q, st, dt_, cfg_, f, k)
 
-    def run(fn):
-        return lambda: [fn(q, st, dt, cfg, f) for q, st, f in blocks]
+            def twin(q, st, dt_, cfg_, f, k=k):
+                return S.shard_sweep_ref(q, st, dt_, cfg_, f, k)
+        outs = []
+        for q, st, flags in blocks:
+            out = kern(q, st, dt, cfg, flags)
+            check_equal(f"{key} flags {flags} (phase 5) vs twin", out,
+                        twin(q, st, dt, cfg, flags))
+            outs.append(out)
+        errs[key] = 0.
 
-    # the wrapper's host time per launch exceeds a 512² launch's device
-    # time, so events around a run of launches time the host; K9's own
-    # time is the profiler's device time (events where it records none)
-    ev = time_ms(run(S.shard_step), reps)
-    dev = k9_ms(device_times(run(S.shard_step), 20))
-    print(f"  K9, one 2 x 2 step: device time {dev:.4f} ms (torch.profiler, "
-          f"4 launches), events around the launches {ev:.4f} ms (the "
-          f"wrapper's host time)")
-    times = (dev or ev, time_ms(run(S.shard_step_ref), plain_reps))
-    ins = [t for q, st, _ in blocks for t in (q, st)]
-    return err, times, bound(ins, outs, N * N)
+        def run(fn):
+            return lambda: [fn(q, st, dt, cfg, f) for q, st, f in blocks]
+
+        # the wrapper's host time per launch exceeds a 512² launch's
+        # device time, so events around a run of launches time the host;
+        # the kernel's own time is the profiler's device time (events
+        # where it records none)
+        ev = time_ms(run(kern), reps) / k
+        name = f"{key}_kernel"
+        dev = k9_ms(device_times(run(kern), 20), name) / k
+        print(f"  {key}, one 2 x 2 exchange ({k} step{'s' * (k > 1)}): "
+              f"device time {dev:.4f} ms a step (torch.profiler, 4 "
+              f"launches), events around the launches {ev:.4f} ms a step "
+              f"(the wrapper's host time)")
+        times[key] = (dev or ev, time_ms(run(twin), plain_reps) / k)
+        ins = [t for q, st, _ in blocks for t in (q, st)]
+        b = bound(ins, outs, N * N, k * OPS_PER_CELL)
+        bounds[key] = (b[0] / k, b[1])
+    return errs, times, bounds
 
 
 def main():
@@ -3193,20 +3353,27 @@ def main():
     from gapflow_torch.validate import (ehl_inputs, ehl_kernel_bitexact,
                                         journal_problem)
     pe = journal_problem(N_CHECK, N_CHECK, device=DEVICE)
-    q, h, ls, px, py, _, dt = ehl_inputs(pe)
+    q, hu, u, ls, dt = ehl_inputs(pe)
     err["ehl_step"], err["ehl_comp_step"] = ehl_checks(
-        "K8", q, h, ls, px, py, dt, pe._solver_cfg)
+        "K8", q, hu, u, ls, dt, pe._solver_cfg)
+    p1 = journal_problem(1024, 1, device=DEVICE)
+    q1, hu1, u1, ls1, dt1 = ehl_inputs(p1)
+    ehl_checks("K8 on a 1024 x 1 journal", q1, hu1, u1, ls1, dt1,
+               p1._solver_cfg)
     # the plain (emit_delta) K8 form runs on no float32 run: its path is
     # this identity, validate.ehl_kernel_bitexact, counted from 0
     reset_all()
-    ident = ehl_kernel_bitexact(n_steps=8, nx=N_CHECK, ny=N_CHECK)
+    ident = [ehl_kernel_bitexact(n_steps=8, nx=N_CHECK, ny=N_CHECK,
+                                 shift_ref=shift) for shift in (False, True)]
     torch.cuda.synchronize()
     ehl_ident_launches = launched()
-    print(f"  compensated K8 vs emit_delta K8 + explicit Kahan two-sum, 8 "
-          f"steps: q max diff {ident['q_maxdiff']:.3e}, q_lo max diff "
-          f"{ident['lo_maxdiff']:.3e} (launches {ehl_ident_launches})")
-    if not ident["ok"]:
-        raise RuntimeError(f"K8 identity: {ident}")
+    for shift, r in zip((False, True), ident):
+        print(f"  compensated K8 vs emit_delta K8 + explicit Kahan two-sum, "
+              f"8 steps, shift_ref {shift}: q max diff {r['q_maxdiff']:.3e}, "
+              f"q_lo max diff {r['lo_maxdiff']:.3e}")
+        if not r["ok"]:
+            raise RuntimeError(f"K8 identity: {r}")
+    print(f"  (launches {ehl_ident_launches})")
 
     print(f"phase 2i: plain whole-run kernels (Kv, the plain sweeps at "
           f"every depth and in one C call) vs K1/K3 launched once per step, "
@@ -3223,8 +3390,11 @@ def main():
     print(f"phase 2s: K9 vs plain twin ({N_CHECK} x {N_CHECK} perturbed "
           f"four-edge D/N journal as one shard block with its serial "
           f"ghosts, the edge flags of a 2 x 2 and a 1 x 4 mesh and zero "
-          f"flags)")
-    err["shard_step"] = shard_kernel_checks()
+          f"flags); the shard sweep at k = 1..4 vs k K9 launches and vs "
+          f"its twin on those patterns, and on 1024 x 1 and 1 x 1024 "
+          f"blocks")
+    err["shard_step"], err["shard_sweep"], shard_witness = \
+        shard_kernel_checks()
 
     print(f"phase 2k: K10, cholesky and tril_solve with "
           f"GAPFLOW_PALLAS_LINALG=1 at n {', '.join(map(str, K10_SIZES))} "
@@ -3463,13 +3633,16 @@ def main():
           f"conventions")
     halfspace_check()
     print(f"phase 3s: Problem.run_steps_sharded on meshes of cuda:0 shards "
-          f"(K9 once per shard and step), {SHARD_STEPS} steps: the "
-          f"perturbed four-edge D/N journal at {N}² on "
-          f"{', '.join(f'{a} x {b}' for a, b in SHARD_MESHES)} against the "
-          f"serial plain boundary route, the periodic journal on 2 x 2 "
-          f"against K1, the sharded EHL loop at {SHARD_EHL_N}²")
+          f"(the shard sweep once per shard and exchange of a 2k-deep "
+          f"halo), {SHARD_STEPS} steps: the perturbed four-edge D/N journal "
+          f"at {N}² on {', '.join(f'{a} x {b}' for a, b in SHARD_MESHES)} "
+          f"at k = {', '.join(map(str, SHARD_DEPTHS))} against the serial "
+          f"plain boundary route, the periodic journal on 2 x 2 against "
+          f"K1, the sharded EHL loop at {SHARD_EHL_N}²")
     t0 = time.perf_counter()
-    launches["shard_step"], p_shard = sharded_phase()
+    launches["shard_sweep"], p_shard = sharded_phase()
+    # K9 runs on no main path since the sweep: its launches are 2s's
+    launches["shard_step"] = shard_witness.get("shard_step", 0)
     print(f"  phase 3s took {time.perf_counter() - t0:.1f} s")
 
     # -- phase 4: physics ---------------------------------------------------
@@ -3500,26 +3673,38 @@ def main():
     bounds.update(gbounds)
     print(f"phase 5: K8 vs plain twin on 3j's final state and deformation, "
           f"{n} x {n}")
-    q, h, ls, px, py, dt, _ = ehl_run_inputs(pj3)
+    q, hu, u, ls, dt, shift, _ = ehl_run_inputs(pj3)
     cfg = pj3._solver_cfg
     errs["ehl_step"], errs["ehl_comp_step"] = ehl_checks(
-        "K8 (phase 5)", q, h, ls, px, py, dt, cfg)
+        "K8 (phase 5)", q, hu, u, ls, dt, cfg, (shift,))
     lo = torch.zeros_like(q)
-    times["ehl_step"] = (
-        time_ms(lambda: S.ehl_step(q, h, ls, px, py, dt, cfg), 200),
-        time_ms(lambda: S.ehl_step_ref(q, h, ls, px, py, dt, cfg), 20))
-    times["ehl_comp_step"] = (
-        time_ms(lambda: S.ehl_comp_step(q, lo, h, ls, px, py, dt, cfg), 200),
-        time_ms(lambda: S.ehl_comp_step_ref(q, lo, h, ls, px, py, dt, cfg),
-                20))
+    # a K8 launch lasts about as long as its wrapper's host work, so
+    # events around back-to-back launches time the host: the kernel's
+    # time is taken with the launches queued behind a spin kernel
+    for key, fn, twin in (
+            ("ehl_step",
+             lambda: S.ehl_step(q, hu, u, ls, dt, cfg, shift_ref=shift),
+             lambda: S.ehl_step_ref(q, hu, u, ls, dt, cfg, shift_ref=shift)),
+            ("ehl_comp_step",
+             lambda: S.ehl_comp_step(q, lo, hu, u, ls, dt, cfg, shift),
+             lambda: S.ehl_comp_step_ref(q, lo, hu, u, ls, dt, cfg,
+                                         shift))):
+        ev = time_ms(fn, 200)
+        dev = queued_ms(fn, 200)
+        print(f"  {key}: device time {dev:.4f} ms (200 launches queued "
+              f"behind a spin kernel), events around 200 launches as "
+              f"they come {ev:.4f} ms")
+        times[key] = (dev, time_ms(twin, 20))
     ops = OPS_PER_CELL + EHL_STATICS_OPS
-    bounds["ehl_step"] = bound((q, h, ls, px, py), (q,), n * n, ops)
-    bounds["ehl_comp_step"] = bound((q, lo, h, ls, px, py), (q, lo), n * n,
+    bounds["ehl_step"] = bound((q, hu, u, ls), (q,), n * n, ops)
+    bounds["ehl_comp_step"] = bound((q, lo, hu, u, ls), (q, lo), n * n,
                                     ops)
-    print(f"phase 5: K9 on the 2 x 2 shards of 3s's final D/N state, "
-          f"{n} x {n} (one step: four launches)")
-    errs["shard_step"], times["shard_step"], bounds["shard_step"] = \
-        shard_kernel_times(p_shard)
+    print(f"phase 5: K9 and the shard sweep on the 2 x 2 shards of 3s's "
+          f"final D/N state, {n} x {n} (four launches an exchange)")
+    serrs, stimes, sbounds = shard_kernel_times(p_shard)
+    errs.update(serrs)
+    times.update(stimes)
+    bounds.update(sbounds)
     for k, e in errs.items():
         err[k] = max(err[k], e)
     for k, (ms, plain) in times.items():
@@ -3544,7 +3729,8 @@ def main():
                     for k in ("gp_step", "gp_step_bc", "gp_steps")})
     sources.update({k: "gapflow_torch/csrc/stencil_ehl.cu"
                     for k in ("ehl_step", "ehl_comp_step")})
-    sources["shard_step"] = "gapflow_torch/csrc/stencil_shard.cu"
+    sources["shard_step"] = sources["shard_sweep"] = \
+        "gapflow_torch/csrc/stencil_shard.cu"
     # the compensated sweeps replace K2c and K3c on the main paths; the
     # one-step compensated kernels stay listed as their witnesses (2i)
     replaces = {"fused_step": "gapflow_tpu/ops/stencil.py:897",
@@ -3563,7 +3749,8 @@ def main():
                 "plain_steps_rem": "gapflow_tpu/ops/stencil.py:1306",
                 "plain_run": "gapflow_tpu/ops/stencil.py:1364",
                 "plain_steps_bc": "gapflow_tpu/ops/stencil.py:759",
-                "shard_step": "gapflow_tpu/ops/stencil.py:457"}
+                "shard_step": "gapflow_tpu/ops/stencil.py:457",
+                "shard_sweep": "gapflow_tpu/ops/stencil.py:457"}
     # no single PyTorch call computes a MacCormack step: library_ms null;
     # K10's are torch.linalg's, at n 2048 (the solve with m 2048)
     k10_launches, k10_err, k10_times, k10_bounds, library = k10

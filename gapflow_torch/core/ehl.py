@@ -11,9 +11,9 @@ Two protocols with one fixed point:
 - :func:`make_ehl_loop` deforms from the END-of-step pressure.  On a
   float32 CUDA state of a fully periodic configuration without shear
   thinning (the production case), the fluid step is the EHL kernel K8
-  (``ops.stencil.ehl_comp_step``): the statics come from ``h_und + u``
-  inside the kernel, and the (q, q_lo) Kahan carry stays interior between
-  steps;
+  (``ops.stencil.ehl_comp_step``): the kernel reads the undeformed gap
+  and the deformation and forms the gap, its slopes and the statics
+  itself, and the (q, q_lo) Kahan carry stays interior between steps;
 - :func:`make_gp_ehl_loop` deforms from the PASS-2 pressure, the host
   ``update()`` + ``topo.update()`` sequencing (reference
   GaPFlow/problem.py:565-569, topography.py:424-441), with GP surrogates
@@ -189,9 +189,8 @@ def make_ehl_loop(problem, use_pallas="auto", dtype=None, deform_every=1,
     FFTs; ``n_steps`` must then be divisible by K.
     """
     from ..ops.stencil import (_periodic_kernel_ok, ehl_comp_step,
-                               ehl_patches, ehl_step, make_pallas_loop,
-                               make_pallas_step, pallas_supported,
-                               with_ghosts)
+                               ehl_step, make_pallas_loop, make_pallas_step,
+                               pallas_supported, with_ghosts)
 
     hs_deform, alpha, shift_ref = _elastic(problem)
     cfg = problem._solver_cfg
@@ -216,59 +215,58 @@ def make_ehl_loop(problem, use_pallas="auto", dtype=None, deform_every=1,
     def deform(u, p):
         return (1. - alpha_K) * u + alpha_K * hs_deform(p.to(u.dtype))
 
+    def topo_of(u):
+        u_eff = u - u[0, 0] if shift_ref else u
+        return _topo_from_deformation(h_und, u_eff, cfg.dx, cfg.dy)
+
+    if ehl_kernel:
+        # the kernel forms the gap from h_und and u (shifted by u[0, 0]
+        # with shift_ref) and its slopes from the ghost-inclusive gap
+        h_und = h_und.contiguous()
+        ls_int = extra_d[0, 1:-1, 1:-1].contiguous()
+
     if ehl_kernel and comp:
         # the interior carry: the ghost ring is a periodic wrap, so the
         # deforming pressure is the wrap of the interior pressure, and the
         # ghost-inclusive state is reassembled once, after the loop
-        h_und_int = h_und[1:-1, 1:-1]
-        ls_int = extra_d[0, 1:-1, 1:-1].contiguous()
-
         def loop(q, u_prev, dt, n_steps):
             q = torch.as_tensor(q, device=dev).to(dtype)
-            u = torch.as_tensor(u_prev, device=dev).to(dtype)
+            u = torch.as_tensor(u_prev, device=dev).to(dtype).contiguous()
             q_int = q[:, 1:-1, 1:-1].contiguous()
             lo = torch.zeros_like(q_int)
             for _ in range(n_steps):
-                u_eff = u - u[0, 0] if shift_ref else u
-                px, py = ehl_patches(h_und + u_eff, cfg)
-                h_int = (h_und_int + u_eff[1:-1, 1:-1]).contiguous()
-                q_int, lo = ehl_comp_step(q_int, lo, h_int, ls_int, px, py,
-                                          dt, cfg)
+                q_int, lo = ehl_comp_step(q_int, lo, h_und, u, ls_int, dt,
+                                          cfg, shift_ref)
                 u = deform(u, _wrap_pad(eos_pressure(q_int[0], prop)))
             return with_ghosts(q_int, cfg), u
 
         return loop
 
     if ehl_kernel:
-        ls_int = extra_d[0, 1:-1, 1:-1].contiguous()
-
-        def fluid(q, lo, u_eff, i, dt, dtf):
-            h_full = h_und + u_eff
-            px, py = ehl_patches(h_full, cfg)
-            q_int = ehl_step(q[:, 1:-1, 1:-1].contiguous(),
-                             h_full[1:-1, 1:-1].contiguous(), ls_int, px,
-                             py, dtf, cfg)
+        def fluid(q, lo, u, i, dt, dtf):
+            q_int = ehl_step(q[:, 1:-1, 1:-1].contiguous(), h_und,
+                             u.contiguous(), ls_int, dtf, cfg,
+                             shift_ref=shift_ref)
             return with_ghosts(q_int, cfg), lo
     elif use_pallas and K > 1:
         inner = make_pallas_loop(cfg, nx, ny, dtype=dtype, compensated=comp,
                                  with_lo=comp)
 
-        def fluid(q, lo, u_eff, i, dt, dtf):
-            topo = _topo_from_deformation(h_und, u_eff, cfg.dx, cfg.dy)
+        def fluid(q, lo, u, i, dt, dtf):
+            topo = topo_of(u)
             if comp:
                 return inner(q, topo, extra_d, dtf, K, lo)
             return inner(q, topo, extra_d, dtf, K), lo
     elif use_pallas:
         pstep = make_pallas_step(cfg, nx, ny, dtype=dtype)
 
-        def fluid(q, lo, u_eff, i, dt, dtf):
-            topo = _topo_from_deformation(h_und, u_eff, cfg.dx, cfg.dy)
-            return pstep(q, topo, extra_d, dtf, i), lo
+        def fluid(q, lo, u, i, dt, dtf):
+            return pstep(q, topo_of(u), extra_d, dtf, i), lo
     else:
         det = make_det_step(cfg, with_aux=False)
 
-        def fluid(q, lo, u_eff, i, dt, dtf):
-            topo = _topo_from_deformation(h_und, u_eff, cfg.dx, cfg.dy)
+        def fluid(q, lo, u, i, dt, dtf):
+            topo = topo_of(u)
             one = torch.ones((), dtype=dtype, device=dev)
             for k in range(K):
                 q = det(SimState(
@@ -289,8 +287,7 @@ def make_ehl_loop(problem, use_pallas="auto", dtype=None, deform_every=1,
         dtf = float(dt)          # the kernels take dt as a float
         lo = torch.zeros_like(q[:, 1:-1, 1:-1])
         for i in range(n_steps // K):
-            u_eff = u - u[0, 0] if shift_ref else u
-            q, lo = fluid(q, lo, u_eff, i * K, dt, dtf)
+            q, lo = fluid(q, lo, u, i * K, dt, dtf)
             p = eos_pressure(q[0], prop)
             if shift_ref:
                 p = p - p[0, 0]

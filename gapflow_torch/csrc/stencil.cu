@@ -31,8 +31,8 @@
 // device memory.  Halo cells are re-read by neighbouring blocks, mostly
 // from L2.
 //
-// The tile body (step_tile) is in stencil_tile.cuh, shared with the EHL
-// step of stencil_ehl.cu, which derives the statics in-kernel.
+// The tile body (step_tile) is in stencil_tile.cuh, shared with the
+// whole-run kernel of stencil_plain.cu.
 //
 // The sweeps are bound by FP32 work instead (stencil_multi.cuh).  Not
 // done yet (later performance work): capturing the chunk loop in a CUDA

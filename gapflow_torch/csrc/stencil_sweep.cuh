@@ -1,9 +1,12 @@
 // The plain (uncompensated) temporally blocked MacCormack sweep for Hopper
 // (sm_90a), float32: k steps of every tile in one launch, each cell's
 // state and predictor held in registers across the sweep.  The body of
-// K2p/Ke (stencil_plain.cu: periodic edges, the interior statics) and of
+// K2p/Ke (stencil_plain.cu: periodic edges, the interior statics), of
 // K3p (stencil_bc.cu: Dirichlet/Neumann edges and shear thinning, the
-// ghost-inclusive statics); plain_sweeps runs a whole plain run of n
+// ghost-inclusive statics), of the shard sweep (stencil_shard.cu: k
+// steps of a shard's halo block) and of the EHL step K8 (stencil_ehl.cu:
+// one step, the statics formed from the deformed gap, the increment or
+// the Kahan carry written); plain_sweeps runs a whole plain run of n
 // steps in one C call.
 //
 // Replaces the plain branch of the Pallas sweep kernels of
@@ -102,22 +105,70 @@ __device__ __forceinline__ float from_minus(float v) {
                  : __shfl_down_sync(FULL_MASK, v, 1);
 }
 
-// k plain steps of the tile (blockIdx.y, blockIdx.x).  BC: the
-// ghost-inclusive statics and edge codes of K3 (st is (8, nx+2, ny+2));
-// else all edges periodic and st is (8, nx, ny).  PX, PY: the x / y edges
+// The statics of an array layout (8, rows, sw), read through the
+// read-only cache: K3's ghost-inclusive (8, nx+2, ny+2), K1's interior
+// (8, nx, ny), or a shard's block (8, bx+2 hs, by+2 hs).  A statics type
+// provides begin(), called once a thread before the sweep, and load(i, j,
+// g), the 8 channels of row i, column j of its layout (stencil_ehl.cu's
+// forms them from the deformed gap instead).
+struct ArrayStat {
+    const float* st;
+    size_t splane;
+    int sw;
+
+    __device__ __forceinline__ void begin() {}
+
+    __device__ __forceinline__ void load(int i, int j, float* g) const {
+        const size_t o = (size_t)i * sw + j;
+#pragma unroll
+        for (int c = 0; c < N_STATIC; ++c) g[c] = __ldg(st + c * splane + o);
+    }
+};
+
+// A shard's block (stencil_shard.cu): its state with an H-deep halo, (3,
+// bx+2H, by+2H), its statics with an hs-deep one, and the domain edges it
+// holds (x-low, x-high, y-high, y-low; each nonzero only where that axis
+// is not periodic).
+struct Shard {
+    int H, hs, xe, xw, yn, ys;
+};
+
+// k steps of the tile (blockIdx.y, blockIdx.x).  BC: the ghost-inclusive
+// statics and edge codes of K3 (S reads (8, nx+2, ny+2)); else all edges
+// periodic and S reads interior (nx, ny) indices.  PX, PY: the x / y edges
 // are periodic (else Dirichlet/Neumann), fixed at compile time so that an
 // instance holds only its own edges' code.  q, out: (3, nx, ny).
-template <bool BC, bool PX, bool PY, bool THIN>
-__global__ void __launch_bounds__(SweepGeo<THIN>::THREADS,
-                                  SweepGeo<THIN>::MIN_BLOCKS)
-sweep_kernel(const float* __restrict__ q, const float* __restrict__ st,
-             float* __restrict__ out, int nx, int ny, int k, int d0,
-             float dt, Params P, Bc bc, Thin T) {
+//
+// MODE (one step deep only, k = 1; the EHL kernel): STATE writes the new
+// state, DELTA the increment ((q* - q) - u) / 2, COMP the Kahan two-sum of
+// that increment into the (q, lo) carry, written to (out, lo_out) in the
+// order of _advance_comp.  KEEP: the statics of the thread's cells are
+// formed once before the passes and held in shared memory.
+//
+// SHARD (with BC): the tile lies in a shard's block (Shard sh).  A
+// domain edge the shard holds is a D/N edge as above (its ghosts refilled
+// in the sweep, so it consumes no halo; PX/PY false marks an axis where
+// the shard holds one); every other side reads the block's halo, never
+// wrapped, and rows and columns beyond the block are clamped (their
+// values reach no tile cell within k steps: H >= k).
+template <bool BC, bool PX, bool PY, bool THIN, int MODE = STATE,
+          bool SHARD = false, bool KEEP = false, class Stat>
+__device__ __forceinline__ void sweep_body(
+    const float* __restrict__ q, const Stat S0, float* __restrict__ out,
+    const float* __restrict__ lo, float* __restrict__ lo_out, int nx, int ny,
+    int k, int d0, float dt, const Params& P, const Bc& bc, const Thin& T,
+    const Shard& sh) {
     using G = SweepGeo<THIN>;
     constexpr int R = G::R, W = G::WARPS;
-    __shared__ float xf[2][G::XCH][W][32];  // edge rows' fluxes (and state)
-    __shared__ float xp[2][W][32];          // THIN: edge rows' pressures
+    constexpr bool SEAM = BC && !SHARD;     // periodic ghost slots (K3)
+    // edge rows' fluxes (with a seam, and state); THIN: their pressures;
+    // KEEP: the statics of every thread's own cells
+    __shared__ float xf[2][SEAM ? G::XCH : 3][W][32];
+    __shared__ float xp[THIN ? 2 : 1][THIN ? W : 1][32];
+    __shared__ float kst[KEEP ? N_STATIC : 1][KEEP ? G::WX : 1][32];
 
+    Stat S = S0;
+    S.begin();
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int h = k * G::SHRINK;
     const int x0 = blockIdx.y * (G::WX - 2 * h);
@@ -125,49 +176,87 @@ sweep_kernel(const float* __restrict__ q, const float* __restrict__ st,
     const int X0 = x0 - h + warp * R;       // X of the thread's first row
     const int Y = y0 - h + lane;
     constexpr bool per_x = PX, per_y = PY;
-    const size_t plane = (size_t)nx * ny;
-    const int sw = BC ? ny + 2 : ny;
-    const size_t splane = BC ? (size_t)(nx + 2) * sw : plane;
+    const size_t plane = (size_t)nx * ny;   // out, lo
+    // the state's layout: the interior, or the shard's halo block
+    const int H = SHARD ? sh.H : 0;
+    const int qw = ny + 2 * H;
+    const size_t qplane = SHARD ? (size_t)(nx + 2 * H) * qw : plane;
+    // the domain edges a shard holds
+    const bool s_xe = SHARD && !per_x && sh.xe;
+    const bool s_xw = SHARD && !per_x && sh.xw;
+    const bool s_ys = SHARD && !per_y && sh.ys;
+    const bool s_yn = SHARD && !per_y && sh.yn;
 
     // the lane's column: state and statics index, ghost and seam flags
-    const int iy = per_y ? wrap(Y, ny) : min(max(Y, 0), ny - 1);
-    const int sy = BC ? (per_y ? iy + 1 : min(max(Y, -1), ny) + 1) : iy;
-    const bool yout = !per_y && (Y < 0 || Y >= ny);
+    int iy, sy;
+    bool yout;
+    if constexpr (SHARD) {
+        iy = min(max(Y, s_ys ? 0 : -H), s_yn ? ny - 1 : ny + H - 1) + H;
+        sy = min(max(Y, s_ys ? -1 : -sh.hs), s_yn ? ny : ny + sh.hs - 1)
+             + sh.hs;
+        yout = (s_ys && Y < 0) || (s_yn && Y >= ny);
+    } else {
+        iy = per_y ? wrap(Y, ny) : min(max(Y, 0), ny - 1);
+        sy = BC ? (per_y ? iy + 1 : min(max(Y, -1), ny) + 1) : iy;
+        yout = !per_y && (Y < 0 || Y >= ny);
+    }
     const bool any_yout = BC && __any_sync(FULL_MASK, yout);
     // a periodic seam of the ghost-inclusive layout: the lane whose
     // difference in direction +1 (-1) reads across it
-    const bool ys_p = BC && per_y && iy == 0;
-    const bool ys_m = BC && per_y && iy == ny - 1;
-    const bool any_ys = BC && __any_sync(FULL_MASK, ys_p || ys_m);
+    const bool ys_p = SEAM && per_y && iy == 0;
+    const bool ys_m = SEAM && per_y && iy == ny - 1;
+    const bool any_ys = SEAM && __any_sync(FULL_MASK, ys_p || ys_m);
+    // the statics rows of the ghost rows beyond the x-low and x-high edges
+    const int gs_lo = SHARD ? sh.hs - 1 : 0;
+    const int gs_hi = SHARD ? nx + sh.hs : nx + 1;
 
     // the rows: statics row, and bit masks of the rows that are cells
-    // (not beyond a D/N edge), D/N edge rows, periodic seam rows
+    // (not beyond a D/N edge, nor a shard's block), D/N edge rows,
+    // periodic seam rows
     int sx[R];
     unsigned cell = 0, e_lo = 0, e_hi = 0, xs_p = 0, xs_m = 0;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
         const int X = X0 + r;
-        const int ix = per_x ? wrap(X, nx) : min(max(X, 0), nx - 1);
-        sx[r] = BC ? (per_x ? ix + 1 : min(max(X, -1), nx) + 1) : ix;
-        if (per_x || (X >= 0 && X < nx)) cell |= 1u << r;
-        if (!per_x && X == 0) e_lo |= 1u << r;
-        if (!per_x && X == nx - 1) e_hi |= 1u << r;
-        if (BC && per_x && ix == 0) xs_p |= 1u << r;
-        if (BC && per_x && ix == nx - 1) xs_m |= 1u << r;
+        if constexpr (SHARD) {
+            sx[r] = min(max(X, s_xe ? -1 : -sh.hs),
+                        s_xw ? nx : nx + sh.hs - 1) + sh.hs;
+            if (!(s_xe && X < 0) && !(s_xw && X >= nx) && X < nx + H)
+                cell |= 1u << r;
+            if (s_xe && X == 0) e_lo |= 1u << r;
+            if (s_xw && X == nx - 1) e_hi |= 1u << r;
+        } else {
+            const int ix = per_x ? wrap(X, nx) : min(max(X, 0), nx - 1);
+            sx[r] = BC ? (per_x ? ix + 1 : min(max(X, -1), nx) + 1) : ix;
+            if (per_x || (X >= 0 && X < nx)) cell |= 1u << r;
+            if (!per_x && X == 0) e_lo |= 1u << r;
+            if (!per_x && X == nx - 1) e_hi |= 1u << r;
+            if (BC && per_x && ix == 0) xs_p |= 1u << r;
+            if (BC && per_x && ix == nx - 1) xs_m |= 1u << r;
+        }
     }
 
     // the state on the window (ghost rows and columns from the edge
-    // formulas, x then y), once a sweep
+    // formulas, x then y), once a sweep; COMP: the carry
     float qa[3][R], pd[3][R];
+    float lq[MODE == COMP ? 3 : 1][R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
         const int X = X0 + r;
-        const int ix = per_x ? wrap(X, nx) : min(max(X, 0), nx - 1);
-        const size_t g = (size_t)ix * ny + iy;
+        int ix;
+        bool xg;                            // beyond a D/N x edge
+        if constexpr (SHARD) {
+            ix = min(max(X, s_xe ? 0 : -H), s_xw ? nx - 1 : nx + H - 1) + H;
+            xg = (s_xe && X < 0) || (s_xw && X >= nx);
+        } else {
+            ix = per_x ? wrap(X, nx) : min(max(X, 0), nx - 1);
+            xg = !per_x && (X < 0 || X >= nx);
+        }
+        const size_t g = (size_t)ix * qw + iy;
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-            float v = q[c * plane + g];
-            if (!per_x && (X < 0 || X >= nx)) {
+            float v = q[c * qplane + g];
+            if (xg) {
                 const int e = X < 0 ? 0 : 1;
                 v = fill(code(bc, e, c), twoval(bc, e), v);
             }
@@ -176,18 +265,17 @@ sweep_kernel(const float* __restrict__ q, const float* __restrict__ st,
                 v = fill(code(bc, e, c), twoval(bc, e), v);
             }
             qa[c][r] = pd[c][r] = v;
+            if constexpr (MODE == COMP) lq[c][r] = lo[c * plane + g];
         }
     }
 
     // the statics of a cell or a ghost slot (row i, column j of the
     // statics' layout), read through the read-only cache every pass: held
     // in registers they would cost the occupancy that hides the passes'
-    // latency (PERF.md)
-    auto statics = [&](int i, int j, float* g) {
-        const size_t o = (size_t)i * sw + j;
-#pragma unroll
-        for (int c = 0; c < N_STATIC; ++c) g[c] = __ldg(st + c * splane + o);
-    };
+    // latency (PERF.md).  KEEP forms a thread's cells' statics once, before
+    // the first pass, and holds them in shared memory, where only that
+    // thread reads them
+    auto statics = [&](int i, int j, float* g) { S.load(i, j, g); };
     // the flux of a cell from its state, statics, pressure and the
     // gradients of thinning
     auto flux = [&](float a, float b, float c, const float* sc, float p,
@@ -216,7 +304,7 @@ sweep_kernel(const float* __restrict__ q, const float* __restrict__ st,
         // edge rows (single-buffered: the flux barrier of the previous
         // pass separates its reads from these writes)
         float p[R], pxm = 0.f, pxp = 0.f;
-        if (THIN) {
+        if constexpr (THIN) {
 #pragma unroll
             for (int r = 0; r < R; ++r)
                 p[r] = (live >> r & 1) ? eos_pressure(src(0, r), P) : 0.f;
@@ -252,7 +340,7 @@ sweep_kernel(const float* __restrict__ q, const float* __restrict__ st,
         // gradient across the edge and its gradient along y
         auto ghost_flux = [&](int r, int e, const float* g, float pc) {
             float sg[N_STATIC];
-            statics(e == 0 ? 0 : nx + 1, sy, sg);
+            statics(e == 0 ? gs_lo : gs_hi, sy, sg);
             float pg = 0.f, gx = 0.f, gy = 0.f;
             if (THIN) {
                 pg = eos_pressure(g[0], P);
@@ -299,10 +387,22 @@ sweep_kernel(const float* __restrict__ q, const float* __restrict__ st,
                          + md * (fy4 - f.f[4]) * P.rdy - f.s[2]);
 #pragma unroll
             for (int c = 0; c < 3; ++c) {
-                if (!second)
+                if (!second) {
                     pd[c][r] = qa[c][r] - u[c];
-                else
+                } else if (MODE == STATE) {
                     qa[c][r] = ((pd[c][r] - u[c]) + qa[c][r]) / 2.f;
+                } else {
+                    const float q0 = qa[c][r];
+                    const float dq = ((pd[c][r] - q0) - u[c]) / 2.f;
+                    if (MODE == DELTA) {
+                        qa[c][r] = dq;
+                    } else {
+                        const float y = dq + lq[MODE == COMP ? c : 0][r];
+                        const float t = q0 + y;
+                        lq[MODE == COMP ? c : 0][r] = y - (t - q0);
+                        qa[c][r] = t;
+                    }
+                }
             }
             if (any_yout) {
 #pragma unroll
@@ -351,13 +451,19 @@ sweep_kernel(const float* __restrict__ q, const float* __restrict__ st,
                            : grad(Y, ny, pym, pc, pyp, T.dy);
             }
             float sr[N_STATIC];
-            statics(sx[r], sy, sr);
+            if (KEEP) {
+#pragma unroll
+                for (int m = 0; m < N_STATIC; ++m)
+                    sr[m] = kst[KEEP ? m : 0][KEEP ? row0 + r : 0][lane];
+            } else {
+                statics(sx[r], sy, sr);
+            }
             const CellFlux f = flux(a, b, c, sr, pc, gx, gy);
 
             // the y neighbour's fluxes; across a periodic seam the ghost's
             float fy1 = from_minus<D>(f.f[1]), fy3 = from_minus<D>(f.f[3]);
             float fy4 = from_minus<D>(f.f[4]);
-            if (BC && any_ys) {
+            if (SEAM && any_ys) {
                 const float na = from_minus<D>(a), nb = from_minus<D>(b);
                 const float nc = from_minus<D>(c);
                 const float npc = THIN ? from_minus<D>(pc) : 0.f;
@@ -384,7 +490,7 @@ sweep_kernel(const float* __restrict__ q, const float* __restrict__ st,
                 xf[buf][0][warp][lane] = f.f[0];
                 xf[buf][1][warp][lane] = f.f[2];
                 xf[buf][2][warp][lane] = f.f[3];
-                if (BC && per_x) {
+                if constexpr (SEAM && per_x) {
                     xf[buf][3][warp][lane] = a;
                     xf[buf][4][warp][lane] = b;
                     xf[buf][5][warp][lane] = c;
@@ -401,7 +507,7 @@ sweep_kernel(const float* __restrict__ q, const float* __restrict__ st,
                 gxb[2] = gf[2];
                 pb[0] = pc;
             } else {
-                if (BC && per_x && ((D > 0 ? xs_p : xs_m) >> r & 1)) {
+                if (SEAM && per_x && ((D > 0 ? xs_p : xs_m) >> r & 1)) {
                     // across a periodic seam in x: the ghost's flux, from
                     // the row at -D in this thread
                     const int rn = r - D;
@@ -431,24 +537,39 @@ sweep_kernel(const float* __restrict__ q, const float* __restrict__ st,
 #pragma unroll
                 for (int m = 0; m < 3; ++m) fx[m] = xf[buf][m][wn][lane];
             }
-            if (BC && per_x && ((D > 0 ? xs_p : xs_m) >> RB & 1)) {
-                float n[4] = {0.f, 0.f, 0.f, 0.f};
-                if (has) {
+            if constexpr (SEAM && per_x) {
+                if ((D > 0 ? xs_p : xs_m) >> RB & 1) {
+                    float n[4] = {0.f, 0.f, 0.f, 0.f};
+                    if (has) {
 #pragma unroll
-                    for (int m = 0; m < 4; ++m) n[m] = xf[buf][3 + m][wn][lane];
+                        for (int m = 0; m < 4; ++m)
+                            n[m] = xf[buf][3 + m][wn][lane];
+                    }
+                    const float np = THIN ? n[3] : 0.f;
+                    const CellFlux g = seam_flux(
+                        true, RB, n[0], n[1], n[2], np,
+                        THIN ? __shfl_up_sync(FULL_MASK, np, 1) : 0.f,
+                        THIN ? __shfl_down_sync(FULL_MASK, np, 1) : 0.f,
+                        pb[0]);
+                    fx[0] = g.f[0];
+                    fx[1] = g.f[2];
+                    fx[2] = g.f[3];
                 }
-                const float np = THIN ? n[3] : 0.f;
-                const CellFlux g = seam_flux(
-                    true, RB, n[0], n[1], n[2], np,
-                    THIN ? __shfl_up_sync(FULL_MASK, np, 1) : 0.f,
-                    THIN ? __shfl_down_sync(FULL_MASK, np, 1) : 0.f, pb[0]);
-                fx[0] = g.f[0];
-                fx[1] = g.f[2];
-                fx[2] = g.f[3];
             }
             update(RB, fb, fx[0], fx[1], fx[2], fyb[0], fyb[1], fyb[2]);
         }
     };
+
+    if constexpr (KEEP) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            if (!(cell >> r & 1)) continue;
+            float g[N_STATIC];
+            statics(sx[r], sy, g);
+#pragma unroll
+            for (int m = 0; m < N_STATIC; ++m) kst[m][row0 + r][lane] = g[m];
+        }
+    }
 
     for (int pass = 0; pass < 2 * k; ++pass) {
         const bool second = pass & 1;
@@ -472,8 +593,26 @@ sweep_kernel(const float* __restrict__ q, const float* __restrict__ st,
         if (li < h || li >= h + tx || X >= nx) continue;
         const size_t g = (size_t)X * ny + Y;
 #pragma unroll
-        for (int c = 0; c < 3; ++c) out[c * plane + g] = qa[c][r];
+        for (int c = 0; c < 3; ++c) {
+            out[c * plane + g] = qa[c][r];
+            if constexpr (MODE == COMP) lo_out[c * plane + g] = lq[c][r];
+        }
     }
+}
+
+// k plain steps of the tile (blockIdx.y, blockIdx.x) on the interior
+// (K2p/Ke, BC false: st is (8, nx, ny)) or with K3's edges (BC: st is
+// (8, nx+2, ny+2)); see sweep_body.
+template <bool BC, bool PX, bool PY, bool THIN>
+__global__ void __launch_bounds__(SweepGeo<THIN>::THREADS,
+                                  SweepGeo<THIN>::MIN_BLOCKS)
+sweep_kernel(const float* __restrict__ q, const float* __restrict__ st,
+             float* __restrict__ out, int nx, int ny, int k, int d0,
+             float dt, Params P, Bc bc, Thin T) {
+    const int sw = BC ? ny + 2 : ny;
+    const ArrayStat S{st, BC ? (size_t)(nx + 2) * sw : (size_t)nx * ny, sw};
+    sweep_body<BC, PX, PY, THIN>(q, S, out, nullptr, nullptr, nx, ny, k, d0,
+                                 dt, P, bc, T, Shard{});
 }
 
 // n plain steps on stream s: n / k sweeps of k steps and one of n mod k,

@@ -1,8 +1,8 @@
 // One periodic MacCormack step of one TX x TY tile, templated on where
 // the eight static channels of a cell come from.  Shared by the periodic
-// kernels of stencil.cu (K1/K2: the statics precomputed in device memory)
-// and stencil_ehl.cu (K8: the statics derived in-kernel from the deformed
-// gap height).
+// kernels of stencil.cu (K1/K2) and stencil_plain.cu (Kv), the statics
+// precomputed in device memory; the update is also K9's
+// (stencil_shard.cu).
 //
 // A Statics type provides
 //     __device__ void load(int i, int j, float s[N_STATIC]) const

@@ -86,18 +86,22 @@ _SIGNATURES = {
     "gf_gp_fields": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     # x, fast, ref, n, stream
     "gf_sqrt_pair": [_P, _P, _P, _I, _P],
-    # q, h, ls, px, py, out, nx, ny, d0, emit_delta, iprm, fprm, rdx2,
+    # q, hu, u, ls, out, nx, ny, shift, d0, emit_delta, iprm, fprm, rdx2,
     # rdy2, dt, stream
-    "gf_ehl_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _F,
+    "gf_ehl_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _F, _F,
                     _F, _P],
-    # q, lo, h, ls, px, py, q_out, lo_out, nx, ny, d0, iprm, fprm, rdx2,
+    # q, lo, hu, u, ls, q_out, lo_out, nx, ny, shift, d0, iprm, fprm, rdx2,
     # rdy2, dt, stream
-    "gf_ehl_comp_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+    "gf_ehl_comp_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                          _F, _F, _F, _P],
     # q, st, out, bx, by, d0, iprm, fprm, bprm, bfprm, xe, xw, yn, ys, dt,
     # stream
     "gf_shard_step": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                       _F, _P],
+    # q, st, out, bx, by, k, hq, hs, d0, iprm, fprm, bprm, bfprm, xe, xw,
+    # yn, ys, dt, stream
+    "gf_shard_sweep": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _F, _P],
     # A, L, W, n, stream, side stream
     "gf_cholesky": [_P, _P, _P, _I, _P, _P],
     # L, B, X, W, Y, n, m, stream

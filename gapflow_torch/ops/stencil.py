@@ -1,6 +1,6 @@
 """Fused MacCormack steps: CUDA kernels, their plain twins, drivers.
 
-Counterpart of :mod:`gapflow_tpu.ops.stencil`.  Twelve kernels, in
+Counterpart of :mod:`gapflow_tpu.ops.stencil`.  Thirteen kernels, in
 ``csrc/stencil.cu`` (periodic), ``csrc/stencil_plain.cu`` (the plain
 periodic loop), ``csrc/stencil_bc.cu`` (boundary),
 ``csrc/stencil_ehl.cu`` (periodic, statics from the deformed gap) and
@@ -43,14 +43,18 @@ periodic loop), ``csrc/stencil_bc.cu`` (boundary),
   ``k <= _k_steps(cfg)`` steps;
 - :func:`ehl_step` (replaces ``_kernel_fused_ehl``) and
   :func:`ehl_comp_step` (replaces ``_kernel_fused_ehl6``): K1's step and
-  the compensated step on the interior ``(q, q_lo)`` carry, with the
-  statics derived in-kernel from the interior gap height and slip length
-  and the boundary gradient patches of :func:`ehl_patches` (the EHL loop
-  deforms the gap every step, so its statics cannot be hoisted);
-- :func:`shard_step` (replaces ``_kernel_fused_bc_shard``): one step of
-  one shard's block with a 2-deep halo, the ghost ring of each domain
-  edge the shard holds refilled between the passes, gated on the shard's
-  edge flags (the sharded loops of :mod:`gapflow_torch.parallel`).
+  the compensated step on the interior ``(q, q_lo)`` carry, on the
+  register sweep body one step deep, with the statics formed in-kernel
+  from the ghost-inclusive undeformed gap and deformation (the gap
+  :func:`ehl_gap`, its slopes over ghost-inclusive neighbours) and the
+  slip length (the EHL loop deforms the gap every step, so its statics
+  cannot be hoisted);
+- :func:`shard_sweep` (replaces ``_kernel_fused_bc_shard`` on the
+  sharded loops of :mod:`gapflow_torch.parallel`): ``k`` steps of one
+  shard's block with a ``2k``-deep halo in one launch, the ghost ring of
+  each domain edge the shard holds refilled in the sweep, gated on the
+  shard's edge flags; :func:`shard_step`, one step of a block with a
+  2-deep halo, is its witness (:func:`shard_steps_once`).
 
 The mixed-edge kernel (``_kernel_fused_bc_mixed``) and its driver are in
 :mod:`gapflow_torch.ops.mixed_bc`.
@@ -92,6 +96,10 @@ from ..models.viscosity import _PIEZO, _THINNING
 #: measured :func:`_plain_k_steps` and :func:`_comp_k_steps`.
 K_MULTI = 4
 
+#: Halo cells a side one step of the shard kernels consumes: a k-step
+#: shard sweep takes a block with a ``HALO_SHARD * k``-deep halo.
+HALO_SHARD = 2
+
 #: Kernel launches per wrapper since the last reset (the plain twins
 #: count nothing).  ``mixed_step`` counts :func:`ops.mixed_bc.mixed_step`;
 #: :func:`plain_sweeps` and :func:`plain_steps` count a sweep of
@@ -101,12 +109,13 @@ K_MULTI = 4
 #: :func:`comp_steps` and
 #: :func:`comp_steps_bc` count every launch of their C call, the
 #: remainder sweep included, as ``comp_sweep`` and ``comp_sweep_bc``;
-#: ``comp_step`` and ``comp_step_bc`` count the one-step witnesses.
+#: ``comp_step`` and ``comp_step_bc`` count the one-step witnesses;
+#: ``shard_sweep`` counts every shard sweep, of any depth.
 LAUNCHES = {"fused_step": 0, "comp_step": 0, "comp_sweep": 0,
             "plain_steps": 0, "plain_steps_rem": 0, "plain_run": 0,
             "fused_step_bc": 0, "comp_step_bc": 0, "comp_sweep_bc": 0,
             "plain_steps_bc": 0, "mixed_step": 0, "ehl_step": 0,
-            "ehl_comp_step": 0, "shard_step": 0}
+            "ehl_comp_step": 0, "shard_step": 0, "shard_sweep": 0}
 
 #: L2 cache of an H100 (bytes), the size :func:`_plain_run_fits` assumes
 #: for a tensor on the CPU; on a CUDA device the device's own is read.
@@ -193,6 +202,12 @@ def _one_pass(cfg, q0, q1, q2, st, dt, d, return_upd=False):
     (``q_new = q - u``)."""
     p = eos_pressure(q0, cfg.prop)
     eta = effective_viscosity(cfg, q0, p, st[2])
+    if not torch.is_tensor(eta):
+        # a constant viscosity held in the state's precision, as the
+        # kernels hold it, so that 4/3 eta and 2/3 eta round as theirs do
+        # (a Python float rounds them in double, an ulp off the kernels'
+        # float32 in rare cells)
+        eta = q0.new_tensor(eta)
     tb_xx, tb_yy, tb_xy, S0, S1, S2 = fused_pass_top_pre(
         q0, q1, q2, st, cfg.U, cfg.V, eta, cfg.bulk)
 
@@ -1036,69 +1051,94 @@ def ehl_statics_ref(h_int, ls_int, px, py, cfg):
                         2. * (3. * Ls + H) * ic * ic, 6. * Ls])
 
 
-def ehl_step_ref(q_int, h_int, ls_int, px, py, dt, cfg, emit_delta=False):
+def ehl_gap(h_und, u, shift_ref=False):
+    """The deformed ghost-inclusive gap ``h_und + (u - u[0, 0])`` with
+    ``shift_ref`` (the half-space's reference shift), else ``h_und + u``:
+    the torch ops the EHL kernel repeats per cell."""
+    return h_und + (u - u[0, 0] if shift_ref else u)
+
+
+def _ehl_statics_of(h_und, u, ls_int, cfg, shift_ref):
+    """:func:`ehl_statics_ref` of the gap :func:`ehl_gap` and its
+    :func:`ehl_patches`, the statics the EHL kernel forms."""
+    h_full = ehl_gap(h_und, u, shift_ref)
+    px, py = ehl_patches(h_full, cfg)
+    return ehl_statics_ref(h_full[1:-1, 1:-1], ls_int, px, py, cfg)
+
+
+def ehl_step_ref(q_int, h_und, u, ls_int, dt, cfg, emit_delta=False,
+                 shift_ref=False):
     """Plain torch twin of :func:`ehl_step`."""
-    return fused_step_ref(q_int, ehl_statics_ref(h_int, ls_int, px, py, cfg),
+    return fused_step_ref(q_int, _ehl_statics_of(h_und, u, ls_int, cfg,
+                                                 shift_ref),
                           dt, cfg, emit_delta)
 
 
-def ehl_comp_step_ref(q_int, q_lo, h_int, ls_int, px, py, dt, cfg):
+def ehl_comp_step_ref(q_int, q_lo, h_und, u, ls_int, dt, cfg,
+                      shift_ref=False):
     """Plain torch twin of :func:`ehl_comp_step`: the emit_delta step and
     the two-sum of ``_advance_comp``.  Returns ``(q, q_lo)``."""
-    return _kahan(q_int, q_lo, ehl_step_ref(q_int, h_int, ls_int, px, py, dt,
-                                            cfg, emit_delta=True))
+    return _kahan(q_int, q_lo, ehl_step_ref(q_int, h_und, u, ls_int, dt, cfg,
+                                            emit_delta=True,
+                                            shift_ref=shift_ref))
 
 
-def _check_ehl(cfg, q, h_int, ls_int, px, py, *more):
+def _check_ehl(cfg, q, h_und, u, ls_int, *more):
     if not _periodic_kernel_ok(cfg):
         raise ValueError("the EHL kernel requires a fully periodic "
                          "configuration without shear thinning")
     _, nx, ny = q.shape
-    _check_tensors(q, (q, (3, nx, ny)), (h_int, (nx, ny)),
-                   (ls_int, (nx, ny)), (px, (2, ny)), (py, (2, nx)),
+    _check_tensors(q, (q, (3, nx, ny)), (h_und, (nx + 2, ny + 2)),
+                   (u, (nx + 2, ny + 2)), (ls_int, (nx, ny)),
                    *((m, (3, nx, ny)) for m in more))
     return nx, ny
 
 
-def ehl_step(q_int, h_int, ls_int, px, py, dt, cfg, emit_delta=False):
+def ehl_step(q_int, h_und, u, ls_int, dt, cfg, emit_delta=False,
+             shift_ref=False):
     """One fused periodic step with the statics formed in-kernel.
 
-    ``q_int``: (3, nx, ny); ``h_int``, ``ls_int``: the interior gap height
-    and slip length (nx, ny); ``px`` (2, ny), ``py`` (2, nx): the patches
-    of :func:`ehl_patches`.  Returns the new state, or with
-    ``emit_delta`` the increment.  CUDA tensors (float32) launch the
-    kernel; CPU tensors run :func:`ehl_step_ref`.
+    ``q_int``: (3, nx, ny); ``h_und``, ``u``: the ghost-inclusive
+    undeformed gap and deformation (nx+2, ny+2), whose gap
+    :func:`ehl_gap` (``shift_ref``: relative to ``u[0, 0]``) the kernel
+    forms per cell, its slopes the central differences over the
+    ghost-inclusive neighbours; ``ls_int``: the interior slip length (nx,
+    ny).  Returns the new state, or with ``emit_delta`` the increment.
+    CUDA tensors (float32) launch the kernel; CPU tensors run
+    :func:`ehl_step_ref`.
     """
     if _on_cpu(q_int):
-        return ehl_step_ref(q_int, h_int, ls_int, px, py, dt, cfg,
-                            emit_delta)
-    nx, ny = _check_ehl(cfg, q_int, h_int, ls_int, px, py)
+        return ehl_step_ref(q_int, h_und, u, ls_int, dt, cfg, emit_delta,
+                            shift_ref)
+    nx, ny = _check_ehl(cfg, q_int, h_und, u, ls_int)
     iprm, fprm = _kernel_params(cfg)
     d0, _ = mc_directions(cfg.MC_order)
     out = torch.empty_like(q_int)
     lib = _build.load()
     with torch.cuda.device(q_int.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.gf_ehl_step(q_int.data_ptr(), h_int.data_ptr(),
-                             ls_int.data_ptr(), px.data_ptr(), py.data_ptr(),
-                             out.data_ptr(), nx, ny, d0, int(emit_delta),
-                             iprm.ctypes.data, fprm.ctypes.data,
-                             0.5 / cfg.dx, 0.5 / cfg.dy, float(dt), stream)
+        rc = lib.gf_ehl_step(q_int.data_ptr(), h_und.data_ptr(),
+                             u.data_ptr(), ls_int.data_ptr(), out.data_ptr(),
+                             nx, ny, int(bool(shift_ref)), d0,
+                             int(emit_delta), iprm.ctypes.data,
+                             fprm.ctypes.data, 0.5 / cfg.dx, 0.5 / cfg.dy,
+                             float(dt), stream)
     _build.check(lib, rc, "gf_ehl_step")
     LAUNCHES["ehl_step"] += 1
     return out
 
 
-def ehl_comp_step(q_int, q_lo, h_int, ls_int, px, py, dt, cfg):
+def ehl_comp_step(q_int, q_lo, h_und, u, ls_int, dt, cfg, shift_ref=False):
     """One Kahan-compensated EHL step on the interior ``(q, q_lo)`` carry,
-    the two-sum in registers.  The inputs are not modified.  Returns
-    ``(q, q_lo)`` (on CUDA, the two halves of one (6, nx, ny) buffer).
-    CUDA tensors (float32) launch the kernel; CPU tensors run
-    :func:`ehl_comp_step_ref`.
+    the two-sum in registers; the other inputs as for :func:`ehl_step`.
+    The inputs are not modified.  Returns ``(q, q_lo)`` (on CUDA, the two
+    halves of one (6, nx, ny) buffer).  CUDA tensors (float32) launch the
+    kernel; CPU tensors run :func:`ehl_comp_step_ref`.
     """
     if _on_cpu(q_int):
-        return ehl_comp_step_ref(q_int, q_lo, h_int, ls_int, px, py, dt, cfg)
-    nx, ny = _check_ehl(cfg, q_int, h_int, ls_int, px, py, q_lo)
+        return ehl_comp_step_ref(q_int, q_lo, h_und, u, ls_int, dt, cfg,
+                                 shift_ref)
+    nx, ny = _check_ehl(cfg, q_int, h_und, u, ls_int, q_lo)
     iprm, fprm = _kernel_params(cfg)
     d0, _ = mc_directions(cfg.MC_order)
     out = torch.empty((6, nx, ny), dtype=q_int.dtype, device=q_int.device)
@@ -1106,10 +1146,10 @@ def ehl_comp_step(q_int, q_lo, h_int, ls_int, px, py, dt, cfg):
     with torch.cuda.device(q_int.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gf_ehl_comp_step(q_int.data_ptr(), q_lo.data_ptr(),
-                                  h_int.data_ptr(), ls_int.data_ptr(),
-                                  px.data_ptr(), py.data_ptr(),
-                                  out[:3].data_ptr(), out[3:].data_ptr(),
-                                  nx, ny, d0, iprm.ctypes.data,
+                                  h_und.data_ptr(), u.data_ptr(),
+                                  ls_int.data_ptr(), out[:3].data_ptr(),
+                                  out[3:].data_ptr(), nx, ny,
+                                  int(bool(shift_ref)), d0, iprm.ctypes.data,
                                   fprm.ctypes.data, 0.5 / cfg.dx,
                                   0.5 / cfg.dy, float(dt), stream)
     _build.check(lib, rc, "gf_ehl_comp_step")
@@ -1119,7 +1159,7 @@ def ehl_comp_step(q_int, q_lo, h_int, ls_int, px, py, dt, cfg):
 
 def make_pallas_ehl_step(cfg, nx, ny, dtype=torch.float32, emit_delta=False):
     """``step(q, u, h_und, extra, dt) -> q_new`` on ghost-inclusive arrays
-    around :func:`ehl_step`: the gap ``h_und + u`` is rebuilt inside the
+    around :func:`ehl_step`: the gap ``h_und + u`` is formed inside the
     kernel.  Returns the ghost-inclusive new state (ghosts by periodic
     wrap) or, with ``emit_delta``, the interior increment."""
     _periodic_gate(cfg)
@@ -1127,31 +1167,29 @@ def make_pallas_ehl_step(cfg, nx, ny, dtype=torch.float32, emit_delta=False):
     def step(q, u, h_und, extra, dt):
         q = torch.as_tensor(q).to(dtype)
         _check_supported(cfg, q, nx, ny)
-        h_full = (torch.as_tensor(h_und, device=q.device)
-                  + torch.as_tensor(u, device=q.device)).to(dtype)
+        h_und = torch.as_tensor(h_und, device=q.device).to(dtype).contiguous()
+        u = torch.as_tensor(u, device=q.device).to(dtype).contiguous()
         ls = torch.as_tensor(extra, device=q.device).to(dtype)[0, 1:-1, 1:-1]
-        px, py = ehl_patches(h_full, cfg)
-        out = ehl_step(q[:, 1:-1, 1:-1].contiguous(),
-                       h_full[1:-1, 1:-1].contiguous(), ls.contiguous(),
-                       px, py, dt, cfg, emit_delta)
+        out = ehl_step(q[:, 1:-1, 1:-1].contiguous(), h_und, u,
+                       ls.contiguous(), dt, cfg, emit_delta)
         return out if emit_delta else with_ghosts(out, cfg)
 
     return step
 
 
 def make_pallas_ehl_loop_step(cfg, nx, ny, dtype=torch.float32):
-    """``step(q6, h_int, ls_int, px, py, dt) -> q6`` around
-    :func:`ehl_comp_step`, with ``q6`` the interior (6, nx, ny)
-    ``(q, q_lo)`` state."""
+    """``step(q6, h_und, u, ls_int, dt, shift_ref=False) -> q6`` around
+    :func:`ehl_comp_step`, with ``q6`` the interior (6, nx, ny) ``(q,
+    q_lo)`` state."""
     _periodic_gate(cfg)
 
-    def step(q6, h_int, ls_int, px, py, dt):
+    def step(q6, h_und, u, ls_int, dt, shift_ref=False):
         q6 = torch.as_tensor(q6).to(dtype)
         if tuple(q6.shape) != (6, nx, ny):
             raise ValueError(f"expected q6 of shape {(6, nx, ny)}, got "
                              f"{tuple(q6.shape)}")
-        return torch.cat(ehl_comp_step(q6[:3], q6[3:], h_int, ls_int, px,
-                                       py, dt, cfg))
+        return torch.cat(ehl_comp_step(q6[:3], q6[3:], h_und, u, ls_int, dt,
+                                       cfg, shift_ref))
 
     return step
 
@@ -1249,4 +1287,131 @@ def shard_step(q_blk, statics_blk, dt, cfg, flags):
                                stream)
     _build.check(lib, rc, "gf_shard_step")
     LAUNCHES["shard_step"] += 1
+    return out
+
+
+def _edge_pad(cfg, q, flags, depth):
+    """``q`` (3, X, Y) extended by ``depth`` ghost rows and columns on
+    each domain edge the shard holds (``flags``): the edge formula of the
+    adjacent line (``core.step.apply_bcs``), repeated to the depth, x
+    edges first and then y edges over the x-extended rows, as
+    ``parallel.halo.halo_blocks`` fills a shard's halo on a domain edge."""
+    xe, xw, yn, ys = (bool(f) for f in flags)
+
+    def fill(e, line):
+        bc = cfg.bc_edge(e)
+        return torch.stack([_edge_fill(bc, c, line[c]) for c in range(3)])
+
+    if xe:
+        g = fill(0, q[:, 0])[:, None]
+        q = torch.cat([g.expand(-1, depth, -1), q], 1)
+    if xw:
+        g = fill(1, q[:, -1])[:, None]
+        q = torch.cat([q, g.expand(-1, depth, -1)], 1)
+    if ys:
+        g = fill(2, q[:, :, 0])[:, :, None]
+        q = torch.cat([g.expand(-1, -1, depth), q], 2)
+    if yn:
+        g = fill(3, q[:, :, -1])[:, :, None]
+        q = torch.cat([q, g.expand(-1, -1, depth)], 2)
+    return q
+
+
+def _sweep_geometry(q_blk, statics_blk, k):
+    """(bx, by, hs) of a shard sweep's inputs: the state block with a
+    ``HALO_SHARD * k``-deep halo, the statics block with an ``hs``-deep
+    one (hs >= the state's, the same on both axes)."""
+    _check_k(k, K_MULTI)
+    hq = HALO_SHARD * k
+    _, hx, hy = q_blk.shape
+    bx, by = hx - 2 * hq, hy - 2 * hq
+    if bx < 1 or by < 1:
+        raise ValueError(f"a {k}-step shard sweep needs a {hq}-deep halo, "
+                         f"got a block of shape {tuple(q_blk.shape)}")
+    hs = (statics_blk.shape[1] - bx) // 2
+    if (statics_blk.shape[0] != N_STATIC or hs < hq
+            or tuple(statics_blk.shape[1:]) != (bx + 2 * hs, by + 2 * hs)):
+        raise ValueError(f"statics block {tuple(statics_blk.shape)} for a "
+                         f"{bx} x {by} shard with a {hq}-deep halo")
+    return bx, by, hs
+
+
+def _shard_steps(step, q_blk, statics_blk, dt, cfg, flags, k):
+    """``k`` applications of ``step`` (a one-step shard kernel or twin)
+    on the shrinking halo of a ``2k``-deep block: each step advances the
+    block less two cells a side on the sides the shard shares with
+    neighbours, and the interior on the domain edges it holds, whose
+    2-deep ghost halo is rebuilt from the new state (:func:`_edge_pad`)
+    before the next step.  Returns the new interior (3, bx, by)."""
+    bx, by, hs = _sweep_geometry(q_blk, statics_blk, k)
+    xe, xw, yn, ys = (bool(f) for f in flags)
+    q, e = q_blk, HALO_SHARD * k     # e: the held edges' halo depth in q
+    for j in range(k):
+        h = HALO_SHARD * (k - j)     # the shared sides' halo depth in q
+        lo_x, hi_x = (2 if xe else h), (2 if xw else h)
+        lo_y, hi_y = (2 if ys else h), (2 if yn else h)
+        ox, oy = (e if xe else h) - lo_x, (e if ys else h) - lo_y
+        q_in = q[:, ox:ox + lo_x + bx + hi_x, oy:oy + lo_y + by + hi_y]
+        st = statics_blk[:, hs - lo_x:hs + bx + hi_x, hs - lo_y:hs + by + hi_y]
+        q = step(q_in.contiguous(), st.contiguous(), dt, cfg, flags)
+        if j < k - 1:
+            q, e = _edge_pad(cfg, q, flags, HALO_SHARD), HALO_SHARD
+    return q
+
+
+def shard_sweep_ref(q_blk, statics_blk, dt, cfg, flags, k):
+    """Plain torch twin of :func:`shard_sweep`, in any dtype: ``k``
+    applications of :func:`shard_step_ref` on the shrinking halo
+    (:func:`_shard_steps`)."""
+    return _shard_steps(shard_step_ref, q_blk, statics_blk, dt, cfg, flags,
+                        k)
+
+
+def shard_steps_once(q_blk, statics_blk, dt, cfg, flags, k):
+    """The witness of :func:`shard_sweep`: ``k`` launches of the one-step
+    kernel :func:`shard_step` on the shrinking halo, the held edges'
+    ghosts rebuilt in torch between them (:func:`_shard_steps`)."""
+    return _shard_steps(shard_step, q_blk, statics_blk, dt, cfg, flags, k)
+
+
+def shard_sweep(q_blk, statics_blk, dt, cfg, flags, k):
+    """``k`` (1 to :data:`K_MULTI`) MacCormack steps of one shard of a
+    sharded run in one launch, on the register sweep body.
+
+    ``q_blk``: (3, bx+4k, by+4k), the shard with a ``2k``-deep halo
+    (``parallel.halo.halo_blocks``: from the mesh neighbours, or on a
+    domain edge the shard holds, the edge's ghost value repeated to the
+    depth); ``statics_blk``: (8, bx+2hs, by+2hs) with hs >= 2k, from
+    :func:`precompute_statics` of the shard's topography block
+    (``parallel.pallas_halo.pad_blocks2_bc`` at that depth); ``flags``
+    (xe, xw, yn, ys) as for :func:`shard_step`.  The ghosts of the held
+    edges are refilled in the sweep, after every pass and average, so
+    those sides consume no halo; the shared sides consume a cell a step
+    of it.  Returns the new interior (3, bx, by), equal to
+    :func:`shard_steps_once` bit for bit.  CUDA tensors (float32) launch
+    the kernel; CPU tensors run :func:`shard_sweep_ref`.
+    """
+    if _on_cpu(q_blk):
+        return shard_sweep_ref(q_blk, statics_blk, dt, cfg, flags, k)
+    if not shard_supported(cfg):
+        raise ValueError("the shard kernel does not cover this "
+                         "configuration (see shard_supported)")
+    bx, by, hs = _sweep_geometry(q_blk, statics_blk, k)
+    _check_tensors(q_blk, (q_blk, q_blk.shape),
+                   (statics_blk, statics_blk.shape))
+    iprm, fprm = _kernel_params(cfg)
+    bprm, bfprm = _bc_params(cfg)
+    d0, _ = mc_directions(cfg.MC_order)
+    xe, xw, yn, ys = (int(bool(f)) for f in flags)
+    out = torch.empty((3, bx, by), dtype=q_blk.dtype, device=q_blk.device)
+    lib = _build.load()
+    with torch.cuda.device(q_blk.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gf_shard_sweep(q_blk.data_ptr(), statics_blk.data_ptr(),
+                                out.data_ptr(), bx, by, k, HALO_SHARD * k,
+                                hs, d0, iprm.ctypes.data, fprm.ctypes.data,
+                                bprm.ctypes.data, bfprm.ctypes.data, xe, xw,
+                                yn, ys, float(dt), stream)
+    _build.check(lib, rc, "gf_shard_sweep")
+    LAUNCHES["shard_sweep"] += 1
     return out

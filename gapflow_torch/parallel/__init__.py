@@ -3,7 +3,7 @@
 Counterpart of :mod:`gapflow_tpu.parallel`: :mod:`.halo` (the mesh, the
 block layouts, the halo exchange, the plain sharded step and the
 adaptive sharded state step), :mod:`.pallas_halo` (the sharded loops
-through the shard kernel K9) and :mod:`.ehl` (the sharded EHL loop).
+through the shard sweep) and :mod:`.ehl` (the sharded EHL loop).
 Shards may share a device (on one card, a mesh of ``cuda:0`` shards; on
 the CPU, ``["cpu"] * k``); meshes across several GPUs are allowed but not
 verified.  :meth:`gapflow_torch.Problem.run_steps_sharded` is the entry

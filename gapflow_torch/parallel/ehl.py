@@ -3,7 +3,7 @@
 Counterpart of :func:`gapflow_tpu.parallel.ehl.make_sharded_ehl_loop`
 (the deterministic family; the GP x elastic loop is not ported yet,
 ROADMAP queue 1 item 11b).  The fluid runs sharded between deformation
-updates (:mod:`.pallas_halo`'s periodic K9 loop, or the plain sharded
+updates (:mod:`.pallas_halo`'s periodic shard-sweep loop, or the plain sharded
 step of :mod:`.halo`); for each update the evolved interior is gathered
 to the first shard's device, its serial ghost ring rebuilt with
 ``apply_bcs``, and its pressure deforms the surface through the port's
@@ -23,21 +23,21 @@ from ..ops import stencil
 from .halo import (gather, make_sharded_det_step, pad_blocks,
                    pad_blocks_torch, split_blocks)
 from .pallas_halo import (make_sharded_pallas_loop, pad_blocks2,
-                          pad_blocks2_torch)
+                          pad_blocks2_torch, statics_depth)
 
 
 def make_sharded_ehl_loop(problem, mesh, deform_every=1, use_pallas=None,
-                          step_fn=None):
+                          sweep_fn=None):
     """Build ``loop(q, u_prev, dt, n_steps) -> (q, u)`` over ``mesh``.
 
     ``q`` is the sharded interior in the Problem's dtype
     (``halo.shard_problem_arrays``); ``u_prev`` the ghost-inclusive
     deformation, kept on the first shard's device in that dtype.
-    ``use_pallas=None`` takes the periodic K9 loop where every shard is
-    on a CUDA device, the dtype is float32 and the kernel covers the
-    configuration (fully periodic, no thinning, a static pass order);
-    ``False`` the plain sharded step.  ``step_fn`` replaces
-    :func:`ops.stencil.shard_step` on the K9 route.
+    ``use_pallas=None`` takes the periodic shard-sweep loop where every
+    shard is on a CUDA device, the dtype is float32 and the kernel covers
+    the configuration (fully periodic, no thinning, a static pass order);
+    ``False`` the plain sharded step.  ``sweep_fn`` replaces
+    :func:`ops.stencil.shard_sweep` on the kernel route.
     """
     hs_deform, alpha, shift_ref = _elastic(problem)
     cfg = problem._solver_cfg
@@ -58,12 +58,13 @@ def make_sharded_ehl_loop(problem, mesh, deform_every=1, use_pallas=None,
 
     if use_pallas:
         fluid_loop = make_sharded_pallas_loop(cfg, mesh, nx, ny, dtype,
-                                              step_fn)
-        extra_b = split_blocks(pad_blocks2(extra, px, py), mesh, dtype)
+                                              sweep_fn)
+        d = statics_depth(fluid_loop.k)
+        extra_b = split_blocks(pad_blocks2(extra, px, py, d), mesh, dtype)
 
         def fluid(q, topo_full, dt, step0):
-            topo2 = split_blocks(pad_blocks2_torch(topo_full, px, py), mesh,
-                                 dtype)
+            topo2 = split_blocks(pad_blocks2_torch(topo_full, px, py, d),
+                                 mesh, dtype)
             return fluid_loop(q, topo2, extra_b, dt, K)
     else:
         step = make_sharded_det_step(cfg, mesh)

@@ -37,7 +37,7 @@ state).  :meth:`run_steps_ehl` is the fast EHL loop (end-of-step
 pressure; the EHL kernel K8 on a covered float32 CUDA state).
 :meth:`run_steps_sharded` decomposes deterministic and deterministic
 elastic runs over a mesh of shards (:mod:`gapflow_torch.parallel`; the
-shard kernel K9 on a covered float32 CUDA mesh).
+shard sweep on a covered float32 CUDA mesh).
 
 Not ported yet (ROADMAP queue 1): ``numerics: gp_fast_pred``, a real MD
 engine, the sharded GP families.  Configurations and calls that need
@@ -1201,16 +1201,19 @@ class Problem:
 
         - deterministic, adaptive dt: the sharded state step (global CFL
           over the shards' owned cells, uniform rollback);
-        - deterministic, fixed dt: the shard kernel K9 once per shard and
-          step (``use_pallas``; periodic edges with every flag zero, D/N
-          edges with each shard's edge flags), or the plain sharded step;
+        - deterministic, fixed dt: the shard sweep once per shard and
+          ``parallel.pallas_halo.SHARD_K`` steps, after one exchange of a
+          halo that deep (``use_pallas``; periodic edges with every flag
+          zero, D/N edges with each shard's edge flags), or the plain
+          sharded step;
         - elastic (fixed dt): the sharded fluid between deformation
           updates every ``deform_every`` steps (:mod:`.parallel.ehl`).
 
         ``mesh`` defaults to every visible CUDA device
-        (:func:`parallel.grid_mesh`).  ``use_pallas=None`` takes K9 where
-        every shard is on a CUDA device, the dtype is float32 and the
-        kernel covers the configuration (:func:`ops.stencil.shard_supported`);
+        (:func:`parallel.grid_mesh`).  ``use_pallas=None`` takes the
+        shard sweep where every shard is on a CUDA device, the dtype is
+        float32 and the kernel covers the configuration
+        (:func:`ops.stencil.shard_supported`);
         ``True`` takes it in any case (the plain twins on the CPU; a CUDA
         tensor the kernel does not take raises).  The interior grid must
         divide the mesh.  GP problems, and adaptive elastic ones, raise
@@ -1267,29 +1270,33 @@ class Problem:
                           and self.dtype == torch.float32
                           and shard_supported(cfg))
 
-        q, topo, extra = shard_problem_arrays(self, mesh)
         if use_pallas:
-            from .parallel.halo import split_blocks
+            # the kernel route takes its statics from the deeper blocks
+            # below: only the state is cut here
+            from .parallel.halo import shard, split_blocks
+            q = shard(np.asarray(self.q)[:, 1:-1, 1:-1], mesh, self.dtype)
             from .parallel.pallas_halo import (
                 make_sharded_bc_pallas_loop, make_sharded_pallas_loop,
-                pad_blocks2, pad_blocks2_bc)
+                pad_blocks2, pad_blocks2_bc, statics_depth)
             extra_f = self.fc.get_real_field("extra").p
+            d = statics_depth()
             if _fully_periodic(cfg):
                 loop = make_sharded_pallas_loop(cfg, mesh, nx, ny,
                                                 self.dtype)
-                t2 = pad_blocks2(self.topo.full, px, py)
-                e2 = pad_blocks2(extra_f, px, py)
+                t2 = pad_blocks2(self.topo.full, px, py, d)
+                e2 = pad_blocks2(extra_f, px, py, d)
             else:
                 per_x = all(cfg.bc_edge(0)["P"])
                 per_y = all(cfg.bc_edge(2)["P"])
                 loop = make_sharded_bc_pallas_loop(cfg, mesh, nx, ny,
                                                    self.dtype)
-                t2 = pad_blocks2_bc(self.topo.full, px, py, per_x, per_y)
-                e2 = pad_blocks2_bc(extra_f, px, py, per_x, per_y)
+                t2 = pad_blocks2_bc(self.topo.full, px, py, per_x, per_y, d)
+                e2 = pad_blocks2_bc(extra_f, px, py, per_x, per_y, d)
             q = loop(q, split_blocks(t2, mesh, self.dtype),
                      split_blocks(e2, mesh, self.dtype), self.dt, n)
         else:
             from .parallel import make_sharded_trajectory
+            q, topo, extra = shard_problem_arrays(self, mesh)
             q = make_sharded_trajectory(cfg, mesh, n)(q, topo, extra,
                                                       self.dt)
 
@@ -1305,11 +1312,11 @@ class Problem:
         the sharded fluid and the deformation every ``deform_every`` steps
         on the first shard's device (:func:`parallel.ehl.make_sharded_ehl_loop`)."""
         from .parallel.ehl import make_sharded_ehl_loop
-        from .parallel.halo import gather, shard_problem_arrays
+        from .parallel.halo import gather, shard
 
         loop = make_sharded_ehl_loop(self, mesh, deform_every=deform_every,
                                      use_pallas=use_pallas)
-        q, _, _ = shard_problem_arrays(self, mesh)
+        q = shard(np.asarray(self.q)[:, 1:-1, 1:-1], mesh, self.dtype)
         q, u = loop(q, self.topo.ElasticDeformation.u_prev, self.dt, n)
         self._sync_deformation(u)
         q = gather(q)

@@ -377,25 +377,25 @@ def gp_kernel_parity(problem, cap=16, seed=0):
 def ehl_inputs(problem, seed=7, u_amp=1e-9):
     """Inputs of the EHL kernel on a perturbed state of ``problem`` (any
     periodic Problem; its gap serves as the undeformed height), float32
-    on its device: interior q, the deformed interior gap, the slip
-    length, the patches ``px``, ``py``, the deformation ``u ~ u_amp
-    N(0, 1)`` (numpy, ``seed``) and dt."""
-    from .ops.stencil import ehl_patches
+    on its device: interior q, the ghost-inclusive undeformed gap and
+    deformation ``u ~ u_amp N(0, 1)`` (numpy, ``seed``, drawn on the
+    whole ghost-inclusive grid, so that the gap's ghost ring is no wrap of
+    its interior), the slip length and dt."""
     dev, f32 = problem.device, torch.float32
     problem._pre_run()
     q = perturbed_state(problem).q.to(f32)[:, 1:-1, 1:-1].contiguous()
     rng = np.random.default_rng(seed)
     u = torch.as_tensor(rng.standard_normal(problem.topo.h.shape) * u_amp,
                         dtype=f32, device=dev)
-    h_full = torch.as_tensor(problem.topo.h, dtype=f32, device=dev) + u
+    h_und = torch.as_tensor(problem.topo.h, dtype=f32, device=dev)
     ls = torch.as_tensor(problem.fc.get_real_field("extra").p[0, 1:-1, 1:-1],
                          dtype=f32, device=dev).contiguous()
-    px, py = ehl_patches(h_full, problem._solver_cfg)
-    return (q, h_full[1:-1, 1:-1].contiguous(), ls, px, py, u,
+    return (q, h_und.contiguous(), u.contiguous(), ls,
             float(np.float32(problem.dt)))
 
 
-def ehl_kernel_bitexact(n_steps=4, nx=256, ny=128, device="cuda"):
+def ehl_kernel_bitexact(n_steps=4, nx=256, ny=128, device="cuda",
+                        shift_ref=False):
     """The compensated EHL kernel (:func:`ops.stencil.ehl_comp_step`)
     against the ``emit_delta`` EHL kernel plus an explicit Kahan two-sum
     in torch, ``n_steps`` steps on a perturbed journal with a deformation
@@ -405,18 +405,19 @@ def ehl_kernel_bitexact(n_steps=4, nx=256, ny=128, device="cuda"):
     from .ops.stencil import ehl_comp_step, ehl_step
     problem = journal_problem(nx=nx, ny=ny, device=device)
     cfg = problem._solver_cfg
-    q0, h_int, ls, px, py, _, dt = ehl_inputs(problem)
+    q0, h_und, u, ls, dt = ehl_inputs(problem)
 
     qr, lo = q0, torch.zeros_like(q0)
     for _ in range(n_steps):
-        delta = ehl_step(qr, h_int, ls, px, py, dt, cfg, emit_delta=True)
+        delta = ehl_step(qr, h_und, u, ls, dt, cfg, emit_delta=True,
+                         shift_ref=shift_ref)
         y = delta + lo
         t = qr + y
         qr, lo = t, y - (t - qr)
 
     qk, lk = q0, torch.zeros_like(q0)
     for _ in range(n_steps):
-        qk, lk = ehl_comp_step(qk, lk, h_int, ls, px, py, dt, cfg)
+        qk, lk = ehl_comp_step(qk, lk, h_und, u, ls, dt, cfg, shift_ref)
 
     dq = float((qk - qr).abs().max())
     dl = float((lk - lo).abs().max())

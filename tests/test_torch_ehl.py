@@ -6,6 +6,11 @@
   float32, within 1e-5 component-scaled, on a journal deformed by a
   field drawn on the whole ghost-inclusive grid, so that the gap's ghost
   ring is no wrap of its interior (the boundary patches matter);
+- the twins on (h_und, u, shift_ref), the inputs of the kernel that
+  forms the gap itself, bit for bit against the step on the statics the
+  loop formed before (``ehl_patches`` of the shifted gap), at float32
+  and float64, and ``make_ehl_loop``'s kernel route against that loop
+  over 5 steps, q and the deformation;
 - the EHL loops at float64 after 20 steps within 1e-10 scaled:
   ``make_ehl_loop`` (plain route), ``make_gp_ehl_loop`` deterministic
   and with frozen synthetic surrogates, ``_run_steps_ehl_pass2`` and
@@ -156,15 +161,13 @@ def test_ehl_step_twin_matches_jax_pallas(k8_case, emit_delta):
 def test_ehl_comp_step_twin_matches_jax_pallas(k8_case):
     tp, q0, u, h_und, extra, out = k8_case
     cfg = tp._solver_cfg
-    hf = torch.as_tensor(h_und) + torch.as_tensor(u)
-    px, py = S.ehl_patches(hf, cfg)
     step6 = S.make_pallas_ehl_loop_step(cfg, 32, 128)
     q6 = torch.cat([torch.as_tensor(q0)[:, 1:-1, 1:-1],
                     torch.zeros((3, 32, 128))])
     for _ in range(4):
-        q6 = step6(q6, hf[1:-1, 1:-1].contiguous(),
+        q6 = step6(q6, torch.as_tensor(h_und), torch.as_tensor(u),
                    torch.as_tensor(extra)[0, 1:-1, 1:-1].contiguous(),
-                   px, py, tp.dt)
+                   tp.dt)
     assert scaled(q6[:3], out["q6"][:3]) < 1e-5
     # the Kahan carry is a rounding residue: hold it to the state's scale
     assert np.abs(q6[3:].numpy() - out["q6"][3:]).max() <= \
@@ -198,6 +201,98 @@ def test_ehl_bitexact_identity_on_the_twins():
     from gapflow_torch.validate import ehl_kernel_bitexact
     r = ehl_kernel_bitexact(n_steps=3, nx=24, ny=16, device="cpu")
     assert r["ok"] and r["q_maxdiff"] == 0. and r["lo_maxdiff"] == 0.
+
+
+def _patch_form(h_und, u, ls, cfg, shift_ref):
+    """The statics as the loop formed them before K8 read the gap itself:
+    ``u_eff``, the gap, :func:`ehl_patches` and the interior gap, torch
+    op by torch op, into :func:`ehl_statics_ref`."""
+    u_eff = u - u[0, 0] if shift_ref else u
+    px, py = S.ehl_patches(h_und + u_eff, cfg)
+    h_int = h_und[1:-1, 1:-1] + u_eff[1:-1, 1:-1]
+    return S.ehl_statics_ref(h_int, ls, px, py, cfg)
+
+
+@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("shift_ref", [False, True])
+def test_ehl_twins_equal_the_patch_form(k8_case, shift_ref, dtype):
+    """The twins on (h_und, u, shift_ref) equal the step on the statics of
+    the patch form bit for bit: the plain step, the increment and the
+    compensated step, on a gap whose ghost ring is no wrap of its
+    interior."""
+    tp, q0, u, h_und, extra, _ = k8_case
+    cfg = tp._solver_cfg
+    q = torch.as_tensor(q0, dtype=dtype)[:, 1:-1, 1:-1]
+    hu = torch.as_tensor(h_und, dtype=dtype)
+    uu = torch.as_tensor(u, dtype=dtype) + 3e-9   # the shift matters
+    ls = torch.as_tensor(extra, dtype=dtype)[0, 1:-1, 1:-1]
+    st = _patch_form(hu, uu, ls, cfg, shift_ref)
+    lo = (torch.rand(q.shape, generator=torch.Generator().manual_seed(3),
+                     dtype=dtype) - 0.5) * 1e-5 * q.abs()
+    for d in (False, True):
+        assert torch.equal(S.ehl_step_ref(q, hu, uu, ls, tp.dt, cfg, d,
+                                          shift_ref),
+                           S.fused_step_ref(q, st, tp.dt, cfg, d))
+    qk, lk = S.ehl_comp_step_ref(q, lo, hu, uu, ls, tp.dt, cfg, shift_ref)
+    qr, lr = S._kahan(q, lo, S.fused_step_ref(q, st, tp.dt, cfg, True))
+    assert torch.equal(qk, qr) and torch.equal(lk, lr)
+    if shift_ref:           # the shift moves the gap
+        assert not torch.equal(st, _patch_form(hu, uu, ls, cfg, False))
+
+
+def test_ehl_step_takes_its_twin_on_the_cpu(k8_case):
+    tp, q0, u, h_und, extra, _ = k8_case
+    cfg = tp._solver_cfg
+    q = torch.as_tensor(q0)[:, 1:-1, 1:-1]
+    hu, uu = torch.as_tensor(h_und), torch.as_tensor(u)
+    ls = torch.as_tensor(extra)[0, 1:-1, 1:-1]
+    S.reset_launches()
+    for shift in (False, True):
+        assert torch.equal(S.ehl_step(q, hu, uu, ls, tp.dt, cfg,
+                                      shift_ref=shift),
+                           S.ehl_step_ref(q, hu, uu, ls, tp.dt, cfg,
+                                          shift_ref=shift))
+        lo = torch.zeros_like(q)
+        for a, b in zip(S.ehl_comp_step(q, lo, hu, uu, ls, tp.dt, cfg, shift),
+                        S.ehl_comp_step_ref(q, lo, hu, uu, ls, tp.dt, cfg,
+                                            shift)):
+            assert torch.equal(a, b)
+    assert sum(S.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("shift_ref", [False, True])
+def test_ehl_kernel_loop_equals_the_patch_form_loop(monkeypatch, shift_ref):
+    """``make_ehl_loop``'s K8 route (float32, the compensated interior
+    carry; its twins on the CPU) equals the loop that formed the gap and
+    its patches in torch every step, bit for bit, q and the deformation,
+    with and without the reference shift."""
+    from gapflow_torch.core.gp_step import _wrap_pad
+    from gapflow_torch.models.eos import eos_pressure
+    _, tp = pair(sim(24, 16))
+    hs_deform, alpha, _ = ehl._elastic(tp)
+    monkeypatch.setattr(ehl, "_elastic",
+                        lambda p: (hs_deform, alpha, shift_ref))
+    cfg = tp._solver_cfg
+    rng = np.random.default_rng(9)
+    u0 = torch.as_tensor(rng.standard_normal((26, 18)) * 1e-9, dtype=F32)
+    q = torch.as_tensor(tp.q)
+    qk, uk = ehl.make_ehl_loop(tp, use_pallas=True)(q, u0, tp.dt, 5)
+
+    h_und = torch.as_tensor(tp.topo.h_undeformed, dtype=F32)
+    ls = torch.as_tensor(tp.fc.get_real_field("extra").p, dtype=F32)[0,
+                                                                      1:-1,
+                                                                      1:-1]
+    q_int = q.to(F32)[:, 1:-1, 1:-1]
+    lo = torch.zeros_like(q_int)
+    u = u0
+    for _ in range(5):
+        st = _patch_form(h_und, u, ls, cfg, shift_ref)
+        q_int, lo = S._kahan(q_int, lo, S.fused_step_ref(q_int, st, tp.dt,
+                                                         cfg, True))
+        p = _wrap_pad(eos_pressure(q_int[0], cfg.prop))
+        u = (1. - alpha) * u + alpha * hs_deform(p.to(u.dtype))
+    assert torch.equal(qk[:, 1:-1, 1:-1], q_int)
+    assert torch.equal(uk, u)
 
 
 # ---------------------------------------------------------------------------

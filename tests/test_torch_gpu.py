@@ -11,7 +11,11 @@ bit for bit, on every edge layout at 16-200 training points, the means
 kernel alone for each feature and output count, the written-out sqrt,
 K10 (the blocked Cholesky and triangular solve, forward and backward),
 K9 (one shard of a sharded run: every flag pattern against its twin,
-K1 and K3 bit for bit) and runs that take the kernels.  The
+K1 and K3 bit for bit), the k-step shard sweep (every flag pattern and
+depth against its twin and k one-step K9 launches, thin and 1D blocks,
+the blocked sharded loops against the serial route), K8 on the register
+body (bit for bit against K1 on the statics it forms) and runs that take
+the kernels.  The
 kernels have no CPU mode, so these tests skip without a CUDA device.
 This file imports no JAX; on a machine without it, run
 
@@ -747,12 +751,40 @@ def test_ehl_step_matches_twin(cuda, emit_delta):
     from gapflow_torch.validate import ehl_inputs
     p = _ehl_problem()
     cfg = p._solver_cfg
-    q, h, ls, px, py, _, dt = ehl_inputs(p)
-    S.reset_launches()
-    out = S.ehl_step(q, h, ls, px, py, dt, cfg, emit_delta=emit_delta)
-    assert S.LAUNCHES["ehl_step"] == 1
-    ref = S.ehl_step_ref(q, h, ls, px, py, dt, cfg, emit_delta=emit_delta)
-    assert kernel_vs_plain_err(out, ref) < 1e-5
+    q, hu, u, ls, dt = ehl_inputs(p)
+    for shift in (False, True):
+        S.reset_launches()
+        out = S.ehl_step(q, hu, u, ls, dt, cfg, emit_delta=emit_delta,
+                         shift_ref=shift)
+        assert S.LAUNCHES["ehl_step"] == 1
+        ref = S.ehl_step_ref(q, hu, u, ls, dt, cfg, emit_delta=emit_delta,
+                             shift_ref=shift)
+        assert kernel_vs_plain_err(out, ref) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [(40, 72), (33, 5), (64, 1)])
+@pytest.mark.parametrize("shift", [False, True])
+def test_ehl_step_equals_k1_on_its_statics(cuda, grid, shift):
+    """K8 forms the statics of ehl_statics_ref from (h_und, u) itself: its
+    step, increment and compensated step equal K1 and the K1-body
+    compensated step on those statics bit for bit (the wrap of a 1-wide
+    axis included)."""
+    from gapflow_torch.validate import ehl_inputs, journal_problem
+    p = journal_problem(*grid, device="cuda")
+    cfg = p._solver_cfg
+    q, hu, u, ls, dt = ehl_inputs(p)
+    st = S._ehl_statics_of(hu, u, ls, cfg, shift).contiguous()
+    k1 = S.fused_step(q, st, dt, cfg)
+    assert torch.equal(S.ehl_step(q, hu, u, ls, dt, cfg, shift_ref=shift), k1)
+    lo = (torch.rand_like(q) - 0.5) * 1e-6 * q.abs()
+    qk, lk = S.ehl_comp_step(q, lo, hu, u, ls, dt, cfg, shift)
+    qc, lc = S.comp_step_once(q, lo, st, dt, cfg)
+    assert torch.equal(qk, qc) and torch.equal(lk, lc)
+    delta = S.ehl_step(q, hu, u, ls, dt, cfg, emit_delta=True,
+                       shift_ref=shift)
+    y = delta + lo
+    assert torch.equal(qk, q + y)
 
 
 @pytest.mark.gpu
@@ -762,28 +794,31 @@ def test_ehl_comp_step_matches_twin_and_identity(cuda):
     from gapflow_torch.validate import ehl_inputs, ehl_kernel_bitexact
     p = _ehl_problem()
     cfg = p._solver_cfg
-    q, h, ls, px, py, _, dt = ehl_inputs(p)
+    q, hu, u, ls, dt = ehl_inputs(p)
     lo = torch.zeros_like(q)
-    qk, lk = S.ehl_comp_step(q, lo, h, ls, px, py, dt, cfg)
-    qr, lr = S.ehl_comp_step_ref(q, lo, h, ls, px, py, dt, cfg)
+    qk, lk = S.ehl_comp_step(q, lo, hu, u, ls, dt, cfg)
+    qr, lr = S.ehl_comp_step_ref(q, lo, hu, u, ls, dt, cfg)
     assert kernel_vs_plain_err(qk, qr) < 1e-5
     assert float((lk - lr).abs().max()) <= 1e-6 * float(qr.abs().max())
     assert torch.equal(lo, torch.zeros_like(q))     # inputs untouched
-    r = ehl_kernel_bitexact(n_steps=4, nx=40, ny=72)
-    assert r["ok"], r
+    for shift in (False, True):
+        r = ehl_kernel_bitexact(n_steps=4, nx=40, ny=72, shift_ref=shift)
+        assert r["ok"], r
 
 
 @pytest.mark.gpu
 def test_ehl_wrapper_rejects_thinning_and_float64(cuda):
     from gapflow_torch.validate import ehl_inputs
     p = _ehl_problem()
-    q, h, ls, px, py, _, dt = ehl_inputs(p)
+    q, hu, u, ls, dt = ehl_inputs(p)
     with pytest.raises(TypeError):
-        S.ehl_step(q.double(), h.double(), ls.double(), px.double(),
-                   py.double(), dt, p._solver_cfg)
+        S.ehl_step(q.double(), hu.double(), u.double(), ls.double(), dt,
+                   p._solver_cfg)
     thin = _problem("", BC_CASES["periodic_eyring"][1])._solver_cfg
     with pytest.raises(ValueError):
-        S.ehl_step(q, h, ls, px, py, dt, thin)
+        S.ehl_step(q, hu, u, ls, dt, thin)
+    with pytest.raises(ValueError):         # an interior gap
+        S.ehl_step(q, hu[1:-1, 1:-1].contiguous(), u, ls, dt, p._solver_cfg)
 
 
 @pytest.mark.gpu
@@ -984,19 +1019,107 @@ def test_shard_step_matches_k1_and_k3(cuda, case):
     assert torch.equal(S.shard_step(q, st, p.dt, cfg, flags), ref)
 
 
+def _held_edge_halo(cfg, q_blk, flags, d):
+    """``q_blk`` with its halo on the domain edges ``flags`` holds
+    rebuilt as ``halo_blocks`` fills it: the edge formulas of the block's
+    own lines, x edges first, then y."""
+    xe, xw, yn, ys = flags
+    core = q_blk[:, d * xe:q_blk.shape[1] - d * xw,
+                 d * ys:q_blk.shape[2] - d * yn]
+    return S._edge_pad(cfg, core, flags, d).contiguous()
+
+
+def _sweep_inputs(case, k, nx=40, ny=72):
+    """A perturbed state of ``case`` at nx x ny as one shard block with a
+    2k-deep halo, and its statics with a (2k + 1)-deep one."""
+    from gapflow_torch.models.closures_opt import precompute_statics
+    from gapflow_torch.parallel.pallas_halo import pad_blocks2_bc
+    p = _problem(*(BC_CASES[case] if case else ("",)), nx=nx, ny=ny)
+    cfg = p._solver_cfg
+    per = (all(cfg.bc_edge(0)["P"]), all(cfg.bc_edge(2)["P"]))
+    st = perturbed_state(p, seed=0, amp=0.01)
+
+    def blk(a, d):
+        return torch.as_tensor(pad_blocks2_bc(a.cpu().numpy(), 1, 1, *per,
+                                              d),
+                               dtype=torch.float32, device="cuda")
+
+    d = 2 * k
+    t, e = blk(st.topo, d + 1), blk(st.extra, d + 1)
+    return p, blk(st.q, d), precompute_statics(t[:3], e).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_shard_sweep_matches_twin_and_one_step_kernel(cuda, k):
+    """The k-step shard sweep on every flag pattern (40 x 72: ragged
+    tiles) equals k launches of the one-step K9 on the shrinking halo and
+    its twin, bit for bit, with one launch."""
+    p, q_all, st = _sweep_inputs("dn_all_asymmetric", k)
+    cfg = p._solver_cfg
+    for flags in itertools.product((0, 1), repeat=4):
+        q = _held_edge_halo(cfg, q_all, flags, 2 * k)
+        S.reset_launches()
+        out = S.shard_sweep(q, st, p.dt, cfg, flags, k)
+        assert S.LAUNCHES["shard_sweep"] == 1
+        assert torch.equal(out, S.shard_steps_once(q, st, p.dt, cfg, flags,
+                                                   k)), flags
+        assert S.LAUNCHES["shard_step"] == k
+        assert torch.equal(out, S.shard_sweep_ref(q, st, p.dt, cfg, flags,
+                                                  k)), flags
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [(64, 1), (1, 40), (37, 3)])
+def test_shard_sweep_on_thin_blocks(cuda, grid):
+    """1D and thin blocks (x D/N edges, y periodic): the sweep at every
+    depth equals k one-step K9 launches and the serial boundary sweeps
+    (K3p) on the whole domain, bit for bit."""
+    for k in (1, 2, 3, 4):
+        p, q_all, st = _sweep_inputs("dn_x", k, *grid)
+        cfg = p._solver_cfg
+        for flags in itertools.product((0, 1), (0, 1), (0,), (0,)):
+            q = _held_edge_halo(cfg, q_all, flags, 2 * k)
+            out = S.shard_sweep(q, st, p.dt, cfg, flags, k)
+            assert torch.equal(out, S.shard_steps_once(q, st, p.dt, cfg,
+                                                       flags, k)), flags
+        d = 2 * k + 1
+        serial = S.plain_steps_bc(q_all[:, 2 * k:-2 * k, 2 * k:-2 * k]
+                                  .contiguous(),
+                                  st[:, d - 1:1 - d, d - 1:1 - d].contiguous(),
+                                  p.dt, cfg, k)
+        assert torch.equal(out, serial)
+
+
+@pytest.mark.gpu
+def test_shard_sweep_refuses_what_it_does_not_take(cuda):
+    p, q, st = _sweep_inputs("dn_all_asymmetric", 2)
+    cfg = p._solver_cfg
+    with pytest.raises(ValueError, match="steps per launch"):
+        S.shard_sweep(q, st, p.dt, cfg, (1, 1, 1, 1), 5)
+    with pytest.raises(ValueError, match="statics block"):
+        S.shard_sweep(q, st[:, 2:-2, 2:-2].contiguous(), p.dt, cfg,
+                      (1, 1, 1, 1), 2)
+    with pytest.raises(TypeError):
+        S.shard_sweep(q.double(), st.double(), p.dt, cfg, (1, 1, 1, 1), 2)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["", "dn_all_asymmetric"])
 def test_sharded_run_takes_k9(cuda, case):
-    """run_steps_sharded on a 2 x 2 mesh of cuda:0 shards launches K9 once
-    per shard and step and equals the serial plain kernel route bit for
-    bit; a float64 CUDA state on the kernel route raises."""
+    """run_steps_sharded on a 2 x 2 mesh of cuda:0 shards launches the
+    shard sweep once per shard and exchange (7 steps: sweeps of SHARD_K
+    and one of the remainder) and equals the serial plain kernel route bit
+    for bit; a float64 CUDA state on the kernel route raises."""
     from gapflow_torch.parallel import grid_mesh
+    from gapflow_torch.parallel.pallas_halo import SHARD_K
     grid = BC_CASES[case] if case else ("",)
     p, s = _problem(*grid), _problem(*grid)
     S.reset_launches()
-    p.run_steps_sharded(6, grid_mesh(["cuda:0"] * 4, (2, 2)))
-    assert {k: v for k, v in S.LAUNCHES.items() if v} == {"shard_step": 24}
-    s.run_steps_fast(6, compensated=False)
+    p.run_steps_sharded(7, grid_mesh(["cuda:0"] * 4, (2, 2)))
+    assert {k: v for k, v in S.LAUNCHES.items() if v} == {
+        "shard_sweep": 4 * -(-7 // SHARD_K)}
+    s.run_steps_fast(7, compensated=False)
     np.testing.assert_array_equal(p.q, s.q)
     p64 = Problem.from_string(
         journal_yaml(40, 72, *grid, out="data/torch_gpu"), device="cuda",
@@ -1004,3 +1127,45 @@ def test_sharded_run_takes_k9(cuda, case):
     with pytest.raises(TypeError):
         p64.run_steps_sharded(1, grid_mesh(["cuda:0"] * 4, (2, 2)),
                               use_pallas=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_blocked_sharded_loops_match_serial(cuda, k):
+    """The sharded loops at every timed depth, 2 x 2 and 1 x 4 meshes of
+    cuda:0 shards, 7 steps (a remainder), periodic and four-edge D/N: bit
+    for bit against the serial plain kernel route."""
+    from gapflow_torch.parallel import grid_mesh
+    from gapflow_torch.parallel.halo import gather, shard_problem_arrays
+    from gapflow_torch.parallel.pallas_halo import (
+        make_sharded_bc_pallas_loop, make_sharded_pallas_loop, pad_blocks2,
+        pad_blocks2_bc, statics_depth)
+    from gapflow_torch.parallel.halo import split_blocks
+    for case in ("", "dn_all_asymmetric"):
+        grid = BC_CASES[case] if case else ("",)
+        for shape in ((2, 2), (1, 4)):
+            p, s = _problem(*grid), _problem(*grid)
+            cfg = p._solver_cfg
+            mesh = grid_mesh(["cuda:0"] * 4, shape)
+            d = statics_depth(k)
+            if case:
+                make = make_sharded_bc_pallas_loop
+
+                def lay(a):
+                    return pad_blocks2_bc(a, *shape, False, False, d)
+            else:
+                make = make_sharded_pallas_loop
+
+                def lay(a):
+                    return pad_blocks2(a, *shape, d)
+            loop = make(cfg, mesh, 40, 72, k=k)
+            q, _, _ = shard_problem_arrays(p, mesh, torch.float32)
+            S.reset_launches()
+            out = gather(loop(q, split_blocks(lay(p.topo.full), mesh,
+                                              torch.float32),
+                              split_blocks(lay(p.fc.get_real_field("extra").p),
+                                           mesh, torch.float32), p.dt, 7))
+            assert S.LAUNCHES["shard_sweep"] == 4 * -(-7 // k)
+            s.run_steps_fast(7, compensated=False)
+            np.testing.assert_array_equal(out.cpu().numpy(),
+                                          s.q[:, 1:-1, 1:-1])

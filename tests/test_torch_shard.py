@@ -24,8 +24,16 @@ block), at most 5 steps:
 - (d) the sharded EHL loop against the JAX package's (XLA route) at
   float64, within 1e-12 scaled, and against the port's serial EHL loop
   (plain step, and bit for bit on the kernel route's twins);
+- (a') the shard sweep's twin ``shard_sweep_ref`` on 2k-deep halo
+  blocks against k one-step twins with a 2-deep exchange before each,
+  bit for bit, k = 1-4, float32 and float64, every flag pattern of a
+  2 x 2 and a 1 x 4 mesh; on a 1D block against the serial boundary
+  twin; the blocked sharded loops at k = 2-4 with a remainder against
+  the serial routes, and at ``SHARD_K`` against the JAX package's
+  sharded run (1e-12 at float64);
 - (e) ``pad_blocks``, ``pad_blocks2``, ``pad_blocks2_bc`` equal to the
-  JAX package's arrays;
+  JAX package's arrays; ``ici_bytes_per_step`` against the JAX
+  package's counts and a hand count;
 - the JAX package's sharded q through the port's ``shard_problem_arrays``
   and back, unchanged, each block equal to the JAX shard;
 - (f) the refusals: GP problems, a grid that does not divide the mesh, a
@@ -50,9 +58,11 @@ from gapflow_torch import Problem as TProblem
 from gapflow_torch.models.closures_opt import precompute_statics
 from gapflow_torch.ops import stencil as S
 from gapflow_torch.parallel import Mesh, gather, grid_mesh, pad_blocks
-from gapflow_torch.parallel.halo import shard_problem_arrays
-from gapflow_torch.parallel.pallas_halo import (ici_bytes_per_step,
-                                                pad_blocks2, pad_blocks2_bc)
+from gapflow_torch.parallel.halo import (halo_blocks, shard_problem_arrays,
+                                         split_blocks)
+from gapflow_torch.parallel.pallas_halo import (SHARD_K, ici_bytes_per_step,
+                                                pad_blocks2, pad_blocks2_bc,
+                                                shard_flags)
 from gapflow_torch.validate import (EHL_ELASTIC, gp_yaml, kernel_vs_plain_err,
                                     perturbed_q)
 
@@ -186,6 +196,92 @@ def test_shard_supported():
               "xW_D: 877.7007"))
 
 
+# -- (a') the shard sweep's twin --------------------------------------------
+
+def shard_statics(p, shape, mesh, dtype, depth, per=(False, False)):
+    """Each shard's statics from its ``depth``-deep topography block."""
+    def lay(a):
+        return split_blocks(pad_blocks2_bc(a, *shape, *per, depth), mesh,
+                            dtype)
+    t, e = lay(p.topo.full), lay(p.fc.get_real_field("extra").p)
+    return [[precompute_statics(t[i][j][:3], e[i][j])
+             for j in range(shape[1])] for i in range(shape[0])]
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_shard_sweep_twin_equals_exchanged_steps(dtype, shape, k):
+    """``shard_sweep_ref`` on each shard's 2k-deep halo block (its statics
+    one cell deeper) equals k one-step twins with a 2-deep exchange
+    before each, bit for bit, on every flag pattern of the mesh (the
+    four-edge D/N journal with an asymmetric Dirichlet pair on each
+    axis)."""
+    text = sim(EDGES_ASYM)
+    p = port(text, dtype, perturbed_q(port(text, torch.float64).q, seed=5))
+    p._communicate_ghost_buffers()
+    cfg = p._solver_cfg
+    mesh = cpu_mesh(shape)
+    q, _, _ = shard_problem_arrays(p, mesh, dtype)
+    st2 = shard_statics(p, shape, mesh, dtype, 2)
+    stk = shard_statics(p, shape, mesh, dtype, 2 * k + 1)
+    flags = [[shard_flags(cfg, mesh, i, j) for j in range(shape[1])]
+             for i in range(shape[0])]
+    ref = q
+    for _ in range(k):
+        hb = halo_blocks(ref, mesh, 2, cfg)
+        ref = [[S.shard_step_ref(hb[i][j], st2[i][j], p.dt, cfg, flags[i][j])
+                for j in range(shape[1])] for i in range(shape[0])]
+    hb = halo_blocks(q, mesh, 2 * k, cfg)
+    for i in range(shape[0]):
+        for j in range(shape[1]):
+            out = S.shard_sweep_ref(hb[i][j], stk[i][j], p.dt, cfg,
+                                    flags[i][j], k)
+            assert out.dtype == dtype
+            assert torch.equal(out, ref[i][j]), flags[i][j]
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_shard_sweep_twin_on_a_1d_block(k):
+    """A 1D domain (32 x 1, x D/N, y periodic) as one block with a
+    2k-deep halo (the y wrap repeating its one column): the sweep twin
+    and the shard sweep's CPU route equal the serial boundary sweep's
+    twin on the whole domain, bit for bit."""
+    text = sim(EDGES_XDN, ny=1)
+    p = port(text, torch.float64, perturbed_q(port(text, torch.float64).q,
+                                              seed=5))
+    p._communicate_ghost_buffers()
+    cfg = p._solver_cfg
+    d = 2 * k
+    q = torch.as_tensor(pad_blocks2_bc(p.q, 1, 1, False, True, d))
+    lay = [torch.as_tensor(pad_blocks2_bc(a, 1, 1, False, True, d + 1))
+           for a in (p.topo.full, p.fc.get_real_field("extra").p)]
+    st = precompute_statics(lay[0][:3], lay[1])
+    flags = (1, 1, 0, 0)
+    out = S.shard_sweep_ref(q, st, p.dt, cfg, flags, k)
+    assert tuple(out.shape) == (3, 32, 1)
+    S.reset_launches()
+    assert torch.equal(S.shard_sweep(q, st, p.dt, cfg, flags, k), out)
+    assert S.LAUNCHES["shard_sweep"] == 0
+    ref = S.plain_steps_bc_ref(torch.as_tensor(p.q)[:, 1:-1, 1:-1],
+                               st[:, d:-d, d:-d], p.dt, cfg, k)
+    assert torch.equal(out, ref)
+
+
+def test_shard_sweep_refuses_a_shallow_block():
+    tp = port(sim(EDGES_ASYM, nx=16, ny=32), torch.float32)
+    cfg = tp._solver_cfg
+    q = torch.as_tensor(pad_blocks2_bc(tp.q, 1, 1, False, False, 4))
+    st = precompute_statics(q.new_ones((3,) + q.shape[1:]),
+                            q.new_zeros((1,) + q.shape[1:]))
+    with pytest.raises(ValueError, match="statics block"):
+        S.shard_sweep(q, st[:, 1:-1, 1:-1], tp.dt, cfg, (1, 1, 1, 1), 2)
+    with pytest.raises(ValueError, match="steps per launch"):
+        S.shard_sweep(q, st, tp.dt, cfg, (1, 1, 1, 1), 5)
+    with pytest.raises(ValueError, match="halo"):
+        S.shard_sweep(q[:, :5, :5], st, tp.dt, cfg, (1, 1, 1, 1), 2)
+
+
 # -- (b) sharded == serial, bit for bit -------------------------------------
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -229,6 +325,77 @@ def test_plain_route_alternating_pass_order():
         p.run_steps_sharded(1, cpu_mesh((2, 2)), use_pallas=True)
 
 
+@pytest.mark.parametrize("k", [2, 3, 4])
+@pytest.mark.parametrize("edges", ["periodic", "all"])
+def test_blocked_sharded_loop_matches_serial(edges, k):
+    """The sharded kernel loops at each timed depth on a 2 x 4 mesh, 7
+    steps (sweeps of k and one of 7 mod k), float32 on the twins: bit for
+    bit against the serial plain kernel route, one sweep per shard and
+    exchange (none counted on the twins)."""
+    from gapflow_torch.parallel.pallas_halo import (
+        make_sharded_bc_pallas_loop, make_sharded_pallas_loop,
+        statics_depth)
+    text = sim(EDGES[edges])
+    dtype = torch.float32
+    q0 = perturbed_q(port(text, torch.float64).q, seed=5)
+    p = port(text, dtype, q0)
+    p._communicate_ghost_buffers()
+    cfg = p._solver_cfg
+    shape = (2, 4)
+    mesh = cpu_mesh(shape)
+    make = (make_sharded_pallas_loop if edges == "periodic"
+            else make_sharded_bc_pallas_loop)
+    loop = make(cfg, mesh, 32, 32, dtype, k=k)
+    assert loop.k == k
+    calls = []
+
+    def sweep(q_blk, st, dt, cfg_, flags, depth):
+        calls.append(depth)
+        return S.shard_sweep(q_blk, st, dt, cfg_, flags, depth)
+
+    loop = make(cfg, mesh, 32, 32, dtype, sweep_fn=sweep, k=k)
+    per = (edges == "periodic",) * 2
+    d = statics_depth(k)
+    lay = [split_blocks(pad_blocks2_bc(a, *shape, *per, d), mesh, dtype)
+           for a in (p.topo.full, p.fc.get_real_field("extra").p)]
+    q, _, _ = shard_problem_arrays(p, mesh, dtype)
+    out = gather(loop(q, *lay, p.dt, 7))
+    depths = [k] * (7 // k) + [7 % k] * (7 % k > 0)
+    assert calls == [dep for dep in depths for _ in range(8)]
+    s = port(text, dtype, p.q)
+    ref = S.make_pallas_loop(s._solver_cfg, 32, 32, dtype=dtype,
+                             compensated=False)(
+        s._tensor(s.q), s.topo.full, s.fc.get_real_field("extra").p, s.dt,
+        7)
+    np.testing.assert_array_equal(out.numpy(), ref[:, 1:-1, 1:-1].numpy())
+
+
+def test_thin_blocks_take_shallower_sweeps():
+    """A 32 x 8 grid on a 1 x 4 mesh (blocks of 32 x 2) takes one step a
+    sweep, 32 x 12 (blocks 32 x 3) one, 32 x 16 (32 x 4) two, each bit
+    for bit against the serial route; thinner blocks are refused."""
+    from gapflow_torch.parallel.pallas_halo import make_sharded_pallas_loop
+    for ny, k in ((8, 1), (12, 1), (16, 2)):
+        text = sim(ny=ny)
+        p = port(text, torch.float64)
+        cfg = p._solver_cfg
+        assert make_sharded_pallas_loop(cfg, cpu_mesh((1, 4)), 32, ny,
+                                        k=4).k == k
+        q = perturbed_q(p.q, seed=5)
+        a, s = port(text, torch.float64, q), port(text, torch.float64, q)
+        a._communicate_ghost_buffers()
+        s._communicate_ghost_buffers()
+        a.run_steps_sharded(5, cpu_mesh((1, 4)), use_pallas=True)
+        ref = S.make_pallas_loop(s._solver_cfg, 32, ny, dtype=torch.float64,
+                                 compensated=False)(
+            s._tensor(s.q), s.topo.full, s.fc.get_real_field("extra").p,
+            s.dt, 5)
+        np.testing.assert_array_equal(a.q, ref.numpy())
+    with pytest.raises(ValueError, match="halo needs blocks"):
+        port(sim(ny=4), torch.float64).run_steps_sharded(
+            1, cpu_mesh((1, 4)), use_pallas=True)
+
+
 # -- (c) the port against the JAX package's sharded run ---------------------
 
 @pytest.mark.parametrize("edges,shape", [("periodic", (2, 2)),
@@ -240,6 +407,21 @@ def test_sharded_run_matches_jax(edges, shape):
                                                   shape=shape),
                          use_pallas=False)
     tp.run_steps_sharded(N_STEPS, cpu_mesh(shape), use_pallas=False)
+    assert scaled_err(tp.q, jp.q) < 1e-12
+    assert (tp.step, tp.simtime) == (jp.step, jp.simtime)
+
+
+@pytest.mark.parametrize("edges", ["periodic", "all"])
+def test_blocked_sharded_run_matches_jax(edges):
+    """The sharded kernel route (the shard sweep's twin, SHARD_K steps per
+    exchange, 7 steps: a remainder sweep) at float64 on a 2 x 2 mesh
+    against the JAX package's sharded run, within 1e-12 scaled."""
+    jp, tp = pair(sim(EDGES[edges]))
+    jp.run_steps_sharded(7, mesh=jgrid_mesh(jax.devices()[:4],
+                                            shape=(2, 2)),
+                         use_pallas=False)
+    tp.run_steps_sharded(7, cpu_mesh((2, 2)), use_pallas=True)
+    assert 7 % SHARD_K
     assert scaled_err(tp.q, jp.q) < 1e-12
     assert (tp.step, tp.simtime) == (jp.step, jp.simtime)
 
@@ -367,18 +549,41 @@ def test_jax_sharded_state_carried_across():
 
 
 def test_halo_copy_bytes_match_jax():
-    """ici_bytes_per_step: the port's one 2-deep exchange per step is the
-    JAX package's one-step ("gp") count, the queued blocked form its
-    temporally blocked ("det") count."""
+    """ici_bytes_per_step: one 2-deep exchange per step ("step") is the
+    JAX package's one-step ("gp") count, the 8-deep exchange per 4 steps
+    ("tpu_blocked") its temporally blocked ("det") count, and the loops'
+    own count at k = 4 equals the latter."""
     from gapflow_tpu.parallel.pallas_halo import (
         ici_bytes_per_step as jici_bytes_per_step)
     for shape in ((1, 1), (2, 2), (2, 4), (1, 8)):
         args = (1024, 1024) + shape
-        assert ici_bytes_per_step(*args) == jici_bytes_per_step(*args,
-                                                                mode="gp")
-        assert ici_bytes_per_step(*args, mode="blocked") \
-            == jici_bytes_per_step(*args, mode="det")
+        assert ici_bytes_per_step(*args, mode="step") \
+            == jici_bytes_per_step(*args, mode="gp")
+        assert ici_bytes_per_step(*args, mode="tpu_blocked") \
+            == jici_bytes_per_step(*args, mode="det") \
+            == ici_bytes_per_step(*args, k=4)
     assert ici_bytes_per_step(1024, 1024, 1, 1) == 0
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_ici_bytes_per_step_hand_count(k):
+    """The loops' halo bytes per shard and step against a hand count at
+    1024² on 2 x 4 float32 shards (bx 512, by 256): a 2k-deep exchange per
+    k steps moves 2 x 3 x 2k x 256 floats along x and 2 x 3 x (512 + 4k)
+    x 2k along y; a 1 x 4 mesh moves only the y halo, 4 x 1 only the x
+    halo."""
+    d = 2 * k
+    x = 2 * 3 * d * 256 * 4
+    y = 2 * 3 * (512 + 2 * d) * d * 4
+    assert ici_bytes_per_step(1024, 1024, 2, 4, k=k) == (x + y) / k
+    assert ici_bytes_per_step(1024, 1024, 1, 4, k=k) \
+        == 2 * 3 * (1024 + 2 * d) * d * 4 / k
+    assert ici_bytes_per_step(1024, 1024, 4, 1, k=k) \
+        == 2 * 3 * d * 1024 * 4 / k
+    assert ici_bytes_per_step(1024, 1024, 2, 4) \
+        == ici_bytes_per_step(1024, 1024, 2, 4, k=SHARD_K)
+    with pytest.raises(ValueError):
+        ici_bytes_per_step(1024, 1024, 2, 4, mode="blocked")
 
 
 # -- (f) refusals -------------------------------------------------------------
