@@ -108,7 +108,7 @@ OPS_PER_CELL = 300
 # The compensated sweeps' bound (K2c, K3c): the two-sum's increment and
 # carry take ~7 operations per component where the average takes 3, so
 # ~12 more per cell and step.  Their bytes are one sweep's over its k
-# steps: below the operations at the main paths' depth 3, above them at
+# steps: below the operations at the main paths' depth 2, above them at
 # depth 1 (shear thinning).
 COMP_OPS_PER_CELL = OPS_PER_CELL + 12
 # FP32 operations per cell of the statics the EHL kernel K8 forms from the
@@ -3207,14 +3207,14 @@ def main():
     log = _build.library_path().with_suffix(".log")
     if log.is_file():       # absent where the library was built earlier
         text = log.read_text()
-        print("  ptxas, the sweep bodies (the compensated multi_step_kernel, "
-              "the plain sweep_kernel) and the one-step compensated "
-              "kernels: " + "; ".join(
+        print("  ptxas, the sweep kernels (the compensated "
+              "comp_sweep_kernel, the plain sweep_kernel) and the one-step "
+              "compensated kernels: " + "; ".join(
                   entry for src in ("stencil.cu", "stencil_bc.cu",
                                     "stencil_plain.cu")
                   for entry in ptxas_entries(
                       text.split(f"== {src}")[-1].split("\n== ")[0])
-                  if re.search("multi_step|sweep_kernel|comp_step|,2>",
+                  if re.search("sweep_kernel|comp_step|,2>",
                                entry)))
         shard = text.split("== stencil_shard.cu")[-1]
         print("  ptxas, K9 (stencil_shard.cu): " + "; ".join(
@@ -3239,7 +3239,8 @@ def main():
     lo = torch.zeros_like(q)
     qk, lk = S.comp_steps(q, lo, st, dt, cfg, 8)
     qr, lr = S.comp_steps_ref(q, lo, st, dt, cfg, 8)
-    err["comp_sweep"] = check("K2c comp_steps x8, two sweeps (q)", qk, qr)
+    err["comp_sweep"] = check("K2c comp_steps x8, four sweeps (q)", qk,
+                              qr)
     if not torch.isfinite(lk).all():
         raise RuntimeError("K2c: non-finite Kahan carry")
     qk, lk = q, lo
@@ -3410,17 +3411,17 @@ def main():
     n, max_it = N, MAX_IT
     print(f"phase 3: Problem.run(), silent float32 journal {n} x {n}, "
           f"max_it {max_it}")
-    # chunks of 1024 steps and one of 2: 4 x 342 sweeps of 3 steps (the
-    # last of each chunk 1 step) and one of 2; no one-step kernel
+    # chunks of 1024 steps and one of 2: 4 x 512 sweeps of 2 steps and
+    # one of 2; no one-step kernel
     one_step = ("comp_step", "comp_step_bc", "fused_step", "fused_step_bc")
     launches = drive("journal", journal(n, n, dt=1e-11, max_it=max_it),
-                     {"comp_sweep": 1369}, one_step)
+                     {"comp_sweep": 2049}, one_step)
     launches["comp_step"] = witness_launches["comp_step"]
 
     print(f"phase 3b: Problem.run(), silent float32 inclined slider {n} x "
           f"{n}, D/N x edges, PL, adaptive dt, max_it {max_it}")
     lb = drive("inclined", problem(inclined_yaml(n, max_it)),
-               {"comp_sweep_bc": 1369}, one_step)
+               {"comp_sweep_bc": 2049}, one_step)
     launches["comp_sweep_bc"] = lb["comp_sweep_bc"]
     launches["comp_step_bc"] = witness_launches["comp_step_bc"]
     # K3 runs on no main path since the plain boundary route takes its
@@ -3463,14 +3464,14 @@ def main():
           "1e-9, 200 steps: run_compiled_fast vs run_compiled (f32 on the "
           "card)")
     runs = {}
-    for route, comp, expect in (
-            ("run_compiled_fast", False, None),
-            ("run_compiled_fast", True, {"comp_sweep_bc": 67}),
-            ("run_compiled", None, {})):
+    for route, comp in (("run_compiled_fast", False),
+                        ("run_compiled_fast", True), ("run_compiled", None)):
         pr = problem(inclined_yaml(128, 200, adaptive=0, dt=1e-9))
         pr._pre_run()
-        if expect is None:
-            expect = plain_launches(pr._solver_cfg, 200)
+        cfg = pr._solver_cfg
+        expect = ({} if comp is None else
+                  {"comp_sweep_bc": -(-200 // S._comp_k_steps(cfg))} if comp
+                  else plain_launches(cfg, 200))
         S.reset_launches()
         getattr(pr, route)(**({} if comp is None else {"compensated": comp}))
         label = route if comp is None else f"{route} compensated={comp}"

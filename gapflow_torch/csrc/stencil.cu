@@ -9,10 +9,11 @@
 //       delta = ((q* - q) - u) / 2;  y = delta + lo;  t = q + y;
 //       lo' = y - (t - q),
 //     in the same order as _advance_comp, in one C call: sweeps of k
-//     (1..4; 3 on the main path, ops/stencil.py _comp_k_steps) steps
-//     temporally blocked on chip (the compensated form of
-//     stencil_multi.cuh) and one sweep of n mod k, ping-ponging two
-//     buffer pairs as the TPU kernel ping-pongs outA/outB.
+//     (1..4; ops/stencil.py _comp_k_steps on the main path) steps
+//     temporally blocked on chip, each cell's state, predictor and carry
+//     in registers (stencil_sweep.cuh), and one sweep of n mod k,
+//     ping-ponging two buffer pairs as the TPU kernel ping-pongs
+//     outA/outB.
 // A third entry, gf_comp_step, is one compensated step on this file's
 // tile body: the witness that the sweeps equal k launches of it bit for
 // bit (tests/test_torch_gpu.py, chip_smoke.py phase 2i); no main path
@@ -34,7 +35,7 @@
 // The tile body (step_tile) is in stencil_tile.cuh, shared with the
 // whole-run kernel of stencil_plain.cu.
 //
-// The sweeps are bound by FP32 work instead (stencil_multi.cuh).  Not
+// The sweeps are bound by FP32 work instead (stencil_sweep.cuh).  Not
 // done yet (later performance work): capturing the chunk loop in a CUDA
 // graph, and vectorised 16-byte loads.
 //
@@ -44,7 +45,7 @@
 //        break the Kahan carry's sub-ulp increments.  --fmad=false keeps
 //        the rounding op for op equal to the plain torch twin.
 
-#include "stencil_multi.cuh"
+#include "stencil_sweep.cuh"
 #include "stencil_tile.cuh"
 
 namespace {
@@ -97,7 +98,7 @@ extern "C" int gf_comp_step(const float* q, const float* lo, const float* st,
 }
 
 // n compensated periodic steps in sweeps of k (1..4) and one of n mod k
-// (stencil_multi.cuh comp_sweeps); A, B (6, nx, ny) device buffers, q
+// (stencil_sweep.cuh comp_sweeps); A, B (6, nx, ny) device buffers, q
 // then q_lo; the result is in A for an odd number of sweeps, else in B.
 extern "C" int gf_comp_sweeps(const float* q, const float* lo,
                               const float* st, float* A, float* B, int nx,

@@ -21,8 +21,9 @@
 //     and every average; gf_plain_steps_bc is one such sweep;
 //   - gf_comp_sweeps_bc <- stencil.py _kernel_fused_bc_hbm with nch = 6
 //     (K3c): n Kahan-compensated steps on the interior (q, q_lo) carry in
-//     one C call, sweeps of k steps (3 on the main path, 1 with shear
-//     thinning: ops/stencil.py _comp_k_steps) and one of n mod k, equal
+//     one C call, sweeps of k steps (ops/stencil.py _comp_k_steps on the
+//     main path; at most 4, or 2 with shear thinning) and one of n mod
+//     k, on the same register body with the carry in registers, equal
 //     bit for bit to n launches of gf_comp_step_bc.
 //
 // Coordinates are ghost-inclusive: X in [-1, nx], Y in [-1, ny], with the
@@ -58,7 +59,6 @@
 // Build: see stencil.cu and ops/_build.py (same flags, --fmad=false).
 
 #include "stencil_common.cuh"
-#include "stencil_multi.cuh"
 #include "stencil_sweep.cuh"
 
 namespace {

@@ -217,7 +217,7 @@ __device__ __forceinline__ int wrap(int i, int n) {
     return i < 0 ? i + n : i;
 }
 
-// -- edge codes of the boundary kernels (stencil_bc.cu, stencil_multi.cuh) --
+// -- edge codes of the boundary kernels (stencil_bc.cu, stencil_sweep.cuh) --
 
 enum Code { CP = 0, CD = 1, CN = 2, CG = 3 };
 

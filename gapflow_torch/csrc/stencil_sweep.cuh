@@ -1,20 +1,22 @@
-// The plain (uncompensated) temporally blocked MacCormack sweep for Hopper
-// (sm_90a), float32: k steps of every tile in one launch, each cell's
-// state and predictor held in registers across the sweep.  The body of
-// K2p/Ke (stencil_plain.cu: periodic edges, the interior statics), of
-// K3p (stencil_bc.cu: Dirichlet/Neumann edges and shear thinning, the
+// The temporally blocked MacCormack sweep for Hopper (sm_90a), float32:
+// k steps of every tile in one launch, each cell's state, predictor and,
+// in the compensated form, Kahan carry held in registers across the
+// sweep.  The body of K2p/Ke (stencil_plain.cu: periodic edges, the
+// interior statics) and K2c (stencil.cu: the same, compensated), of K3p
+// and K3c (stencil_bc.cu: Dirichlet/Neumann edges and shear thinning, the
 // ghost-inclusive statics), of the shard sweep (stencil_shard.cu: k
 // steps of a shard's halo block) and of the EHL step K8 (stencil_ehl.cu:
 // one step, the statics formed from the deformed gap, the increment or
-// the Kahan carry written); plain_sweeps runs a whole plain run of n
-// steps in one C call.
+// the Kahan carry written); plain_sweeps and comp_sweeps run a whole run
+// of n steps in one C call.
 //
-// Replaces the plain branch of the Pallas sweep kernels of
-// gapflow_tpu/ops/stencil.py: _kernel_fused_hbm_loop with _advance_plain
-// (K2p), its remainder _kernel_fused_ext (Ke) and _kernel_fused_bc_hbm
-// with nch = 3 (K3p).  k steps of a launch round exactly like k launches
-// of K1 (stencil.cu) or K3 (stencil_bc.cu): every flux, update and
-// average is the one-step kernels' own arithmetic in their order.
+// Replaces the Pallas sweep kernels of gapflow_tpu/ops/stencil.py:
+// _kernel_fused_hbm_loop with _advance_plain (K2p) or _advance_comp
+// (K2c), its remainder _kernel_fused_ext (Ke) and _kernel_fused_bc_hbm
+// with nch = 3 (K3p) or nch = 6 (K3c).  k steps of a launch round exactly
+// like k launches of K1 (stencil.cu) or K3 (stencil_bc.cu), or of their
+// one-step compensated forms: every flux, update, average and two-sum is
+// the one-step kernels' own arithmetic in their order.
 //
 // Layout.  A block of WARPS warps advances a window of WX = R * WARPS rows
 // (x) by 32 columns (y): lane j holds column j, and the warp w the rows
@@ -38,6 +40,17 @@
 // tile plus the halo the remaining passes consume) are skipped, a warp's
 // row at a time.
 //
+// The Kahan carry (MODE COMP) is 3 more registers a cell.  It never
+// crosses a thread: a neighbour reads only fluxes, and across a periodic
+// seam the state.  It is loaded on every window cell like q (a halo
+// cell's carry sets that cell's q after the first step, and so every
+// later step of the cells it feeds); each step's second pass ends in the
+// two-sum of the increment, in the order of _advance_comp,
+//     delta = ((q* - q) - u) / 2;  y = delta + lo;  t = q + y;
+//     lo = y - (t - q);  q = t,
+// and the tile's q and q_lo are written.  A D/N ghost is refilled from
+// q alone; its carry is never written out.
+//
 // Edges, as in the one-step kernels:
 //   - periodic: window indices wrap.  On the ghost-inclusive layout of K3
 //     a periodic ghost is a copy of the far interior cell with statics of
@@ -58,17 +71,20 @@
 //     consume no halo.
 // Each D/N instance is compiled for its periodic axes (PX, PY): carrying
 // every edge's paths at run time made the boundary sweeps slower than the
-// shared-memory body (PERF.md).
+// shared-memory body they replaced (PERF.md).
 //
 // What bounds it: the FP32 work, about 300 operations a cell and step
-// under --fmad=false, and the instructions around it; device memory moves
-// 14 floats a cell per sweep (3 in, 8 statics, 3 out).  The passes' long
-// chains (IEEE divisions, the EOS, thinning) want many warps a SM, so the
-// registers a thread holds are what the tile is chosen by: 2 rows a
-// thread, 16 warps a block, two blocks a SM (timed against 4 and 8 rows
-// and 8 and 16 warps in tests/comp_sweep_bench.py, PERF.md).  PERF.md
-// gives the instruction counts of this body and of the shared-memory body
-// it replaced (stencil_multi.cuh), from tests/comp_sweep_bench.py --sass.
+// under --fmad=false (312 with the two-sum), and the instructions around
+// it; device memory moves 14 floats a cell per sweep (3 in, 8 statics, 3
+// out; 20 with the carry).  The passes' long chains (IEEE divisions, the
+// EOS, thinning) want many warps a SM, so the registers a thread holds
+// are what the tile is chosen by: 2 rows a thread, 16 warps a block, two
+// blocks a SM (timed against 4 and 8 rows and 8 and 16 warps in
+// tests/comp_sweep_bench.py, PERF.md).  At two blocks the D/N instances
+// spill a few registers, the compensated ones more (the carry); compiled
+// for one block a SM (128 registers) they spill none but run slower.
+// PERF.md gives the instruction counts of this body and of the
+// shared-memory body it replaced, from tests/comp_sweep_bench.py --sass.
 
 #pragma once
 
@@ -139,11 +155,12 @@ struct Shard {
 // are periodic (else Dirichlet/Neumann), fixed at compile time so that an
 // instance holds only its own edges' code.  q, out: (3, nx, ny).
 //
-// MODE (one step deep only, k = 1; the EHL kernel): STATE writes the new
-// state, DELTA the increment ((q* - q) - u) / 2, COMP the Kahan two-sum of
-// that increment into the (q, lo) carry, written to (out, lo_out) in the
-// order of _advance_comp.  KEEP: the statics of the thread's cells are
-// formed once before the passes and held in shared memory.
+// MODE: STATE writes the new state; COMP ends every step in the Kahan
+// two-sum of the increment into the (q, lo) carry, written to (out,
+// lo_out) in the order of _advance_comp (K2c, K3c, K8); DELTA (one step
+// deep only, k = 1; the EHL kernel) writes the increment ((q* - q) - u)
+// / 2.  KEEP: the statics of the thread's cells are formed once before
+// the passes and held in shared memory.
 //
 // SHARD (with BC): the tile lies in a shard's block (Shard sh).  A
 // domain edge the shard holds is a D/N edge as above (its ghosts refilled
@@ -615,51 +632,97 @@ sweep_kernel(const float* __restrict__ q, const float* __restrict__ st,
                                  dt, P, bc, T, Shard{});
 }
 
-// n plain steps on stream s: n / k sweeps of k steps and one of n mod k,
-// each a launch of sweep_kernel that reads one state buffer and writes the
-// other.  The first sweep reads q; sweep i writes A (i even) or B (i odd),
-// each (3, nx, ny), so the result is in A for an odd number of sweeps,
-// else in B (B may be null when n <= k).  Returns the first CUDA error,
-// before any later launch.
+// k compensated steps of the tile (blockIdx.y, blockIdx.x) on the (q,
+// q_lo) carry: K2c (BC false: st is (8, nx, ny)) or K3c (BC: st is (8,
+// nx+2, ny+2)); see sweep_body.  q, lo, out, lo_out: (3, nx, ny).
 template <bool BC, bool PX, bool PY, bool THIN>
-void launch_sweep(const float* q, const float* st, float* out, int nx,
-                  int ny, int k, int d0, float dt, const Params& P,
-                  const Bc& bc, const Thin& T, void* s) {
-    using G = SweepGeo<THIN>;
-    sweep_kernel<BC, PX, PY, THIN><<<G::grid(nx, ny, k), G::THREADS, 0,
-                                     (cudaStream_t)s>>>(
-        q, st, out, nx, ny, k, d0, dt, P, bc, T);
+__global__ void __launch_bounds__(SweepGeo<THIN>::THREADS,
+                                  SweepGeo<THIN>::MIN_BLOCKS)
+comp_sweep_kernel(const float* __restrict__ q, const float* __restrict__ lo,
+                  const float* __restrict__ st, float* __restrict__ out,
+                  float* __restrict__ lo_out, int nx, int ny, int k, int d0,
+                  float dt, Params P, Bc bc, Thin T) {
+    const int sw = BC ? ny + 2 : ny;
+    const ArrayStat S{st, BC ? (size_t)(nx + 2) * sw : (size_t)nx * ny, sw};
+    sweep_body<BC, PX, PY, THIN, COMP>(q, S, out, lo, lo_out, nx, ny, k, d0,
+                                       dt, P, bc, T, Shard{});
 }
 
-template <bool BC, bool THIN>
-int plain_sweeps(const float* q, const float* st, float* A, float* B,
-                 int nx, int ny, int n, int k, int d0, float dt,
-                 const Params& P, const Bc& bc, const Thin& T, void* s) {
+// One sweep of k steps on stream s: sweep_kernel (STATE) or
+// comp_sweep_kernel (COMP, which reads lo and writes lo_out).
+template <bool BC, bool PX, bool PY, bool THIN, int MODE>
+void launch_sweep(const float* q, const float* lo, const float* st,
+                  float* out, float* lo_out, int nx, int ny, int k, int d0,
+                  float dt, const Params& P, const Bc& bc, const Thin& T,
+                  void* s) {
+    using G = SweepGeo<THIN>;
+    const dim3 grid = G::grid(nx, ny, k);
+    if constexpr (MODE == COMP)
+        comp_sweep_kernel<BC, PX, PY, THIN><<<grid, G::THREADS, 0,
+                                              (cudaStream_t)s>>>(
+            q, lo, st, out, lo_out, nx, ny, k, d0, dt, P, bc, T);
+    else
+        sweep_kernel<BC, PX, PY, THIN><<<grid, G::THREADS, 0,
+                                         (cudaStream_t)s>>>(
+            q, st, out, nx, ny, k, d0, dt, P, bc, T);
+}
+
+// n steps on stream s: n / k sweeps of k steps and one of n mod k, each a
+// launch that reads one state buffer and writes the other.  The first
+// sweep reads q (COMP: and the carry lo); sweep i writes A (i even) or B
+// (i odd), each (3, nx, ny), or with COMP (6, nx, ny): q, then q_lo.  The
+// result is in A for an odd number of sweeps, else in B (B may be null
+// when n <= k).  Returns the first CUDA error, before any later launch.
+template <bool BC, bool THIN, int MODE>
+int sweeps(const float* q, const float* lo, const float* st, float* A,
+           float* B, int nx, int ny, int n, int k, int d0, float dt,
+           const Params& P, const Bc& bc, const Thin& T, void* s) {
     using G = SweepGeo<THIN>;
     if (k < 1 || k > G::KMAX || n < 1 || (n > k && B == nullptr))
         return (int)cudaErrorInvalidValue;
     // the instance for the edges: periodic x and y without BC; with BC
     // each axis periodic or not by its edge codes (an axis is periodic on
     // both edges or on neither)
-    auto launch = launch_sweep<BC, true, true, THIN>;
+    auto launch = launch_sweep<BC, true, true, THIN, MODE>;
     if constexpr (BC) {
         const bool px = code(bc, 0, 0) == CP, py = code(bc, 2, 0) == CP;
         if (!px)
-            launch = py ? launch_sweep<BC, false, true, THIN>
-                        : launch_sweep<BC, false, false, THIN>;
+            launch = py ? launch_sweep<BC, false, true, THIN, MODE>
+                        : launch_sweep<BC, false, false, THIN, MODE>;
         else if (!py)
-            launch = launch_sweep<BC, true, false, THIN>;
+            launch = launch_sweep<BC, true, false, THIN, MODE>;
     }
+    const size_t plane3 = (size_t)3 * nx * ny;
     for (int done = 0, i = 0; done < n; ++i) {
         const int kk = n - done < k ? n - done : k;
         float* dst = i % 2 ? B : A;
-        launch(q, st, dst, nx, ny, kk, d0, dt, P, bc, T, s);
+        float* lo_dst = MODE == COMP ? dst + plane3 : nullptr;
+        launch(q, lo, st, dst, lo_dst, nx, ny, kk, d0, dt, P, bc, T, s);
         const cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
         q = dst;
+        lo = lo_dst;
         done += kk;
     }
     return 0;
+}
+
+// n plain steps; A, B (3, nx, ny).
+template <bool BC, bool THIN>
+int plain_sweeps(const float* q, const float* st, float* A, float* B,
+                 int nx, int ny, int n, int k, int d0, float dt,
+                 const Params& P, const Bc& bc, const Thin& T, void* s) {
+    return sweeps<BC, THIN, STATE>(q, nullptr, st, A, B, nx, ny, n, k, d0,
+                                   dt, P, bc, T, s);
+}
+
+// n compensated steps on the (q, lo) carry; A, B (6, nx, ny).
+template <bool BC, bool THIN>
+int comp_sweeps(const float* q, const float* lo, const float* st, float* A,
+                float* B, int nx, int ny, int n, int k, int d0, float dt,
+                const Params& P, const Bc& bc, const Thin& T, void* s) {
+    return sweeps<BC, THIN, COMP>(q, lo, st, A, B, nx, ny, n, k, d0, dt, P,
+                                  bc, T, s);
 }
 
 }  // namespace

@@ -11,8 +11,9 @@ periodic loop), ``csrc/stencil_bc.cu`` (boundary),
 - :func:`comp_steps` (replaces ``_kernel_fused_hbm_loop`` with
   ``_advance_comp``): ``n`` Kahan-compensated periodic steps on the
   ``(q, q_lo)`` carry in one C call, sweeps of :func:`_comp_k_steps`
-  steps temporally blocked on chip and one sweep of the remainder,
-  ping-ponging two buffer pairs;
+  steps temporally blocked on chip, on the plain sweeps' register body
+  with the carry in three more registers a cell, and one sweep of the
+  remainder, ping-ponging two buffer pairs;
 - :func:`comp_step_once`: one compensated periodic step, the witness
   that :func:`comp_steps` equals ``n`` launches of it bit for bit (on
   no main path);
@@ -180,13 +181,13 @@ def _plain_k_steps(cfg):
 
 def _comp_k_steps(cfg):
     """Steps per sweep of the compensated loop (:func:`comp_steps`,
-    :func:`comp_steps_bc`), the fastest depth timed at 1024² on the H100
-    (``tests/comp_sweep_bench.py``, PERF.md): 3 without shear thinning,
-    whose deeper window recomputes more halo than the saved traffic
-    pays for; 1 with it, the window of a 32 x 32 tile two steps deep
-    leaving one block per SM.  Any depth gives the same result bit for
-    bit."""
-    return 1 if cfg.thinning is not None else 3
+    :func:`comp_steps_bc`), the fastest depth timed at 2048² and 1024² on
+    the H100 (``tests/comp_sweep_bench.py``, PERF.md): 2 without shear
+    thinning, whose 32-column window loses a column a side per step (3
+    and 4 recompute more halo than the saved traffic pays for); 1 with
+    it, which consumes three.  Any depth in ``1.._k_steps(cfg)`` gives
+    the same result bit for bit."""
+    return 1 if cfg.thinning is not None else 2
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 the plain K2p/Ke/K3p (not a test; needs nvcc and a CUDA device).
 
     python tests/comp_sweep_bench.py [--root DIR] [--save FILE] [--sass]
-        [--only plain]
+        [--only plain|comp|sass]
     python tests/comp_sweep_bench.py --compare FILE_A FILE_B
     python tests/comp_sweep_bench.py --variant NAME DIR
 
@@ -13,8 +13,9 @@ parent.  Prints:
 
 - the card's name and power limit, and ``ptxas``'s report (registers,
   stack frame, spills, shared memory) for every instance of the sweep
-  bodies (``multi_step_kernel``, ``sweep_kernel``) and the one-step
-  kernels;
+  kernels (the compensated ``comp_sweep_kernel``, the plain
+  ``sweep_kernel``; in an older tree the shared-memory
+  ``multi_step_kernel``) and the one-step kernels;
 - with ``--sass``, the SASS of the plain sweep body (whichever the tree
   has) compiled for each phase-5 input's models (the journal: DH, no
   piezoviscosity; the slider: PL; the Eyring asperity: BWR and Eyring
@@ -23,11 +24,14 @@ parent.  Prints:
   class (FP32, MUFU, LDS/STS, SHFL, LDG/STG, BAR, branch, integer and
   other; ``gp_step_bench.sass_report``);
 - at 1024², on the inputs of ``chip_smoke.py`` phase 5 (the journal,
-  the inclined slider, the Eyring asperity; perturbed by 0.01, seed 0):
-  events around one ``comp_steps`` / ``comp_steps_bc`` call of 1024
-  steps, the tree's compensated route, per step, and (in a tree with
-  the sweeps' C entries) the same at every sweep depth k; and around 256
-  launches of the one-step compensated kernel, per step;
+  the inclined slider, the Eyring asperity; perturbed by 0.01, seed 0),
+  and at 2048² on the journal, the asperity without thinning (the
+  benchmark cells' BWR contact), the slider and the Eyring asperity:
+  events around one ``comp_steps`` /
+  ``comp_steps_bc`` call of 1024 steps, the tree's compensated route,
+  per step, and (in a tree with the sweeps' C entries) the same at every
+  sweep depth k; and around 256 launches of the one-step compensated
+  kernel, per step;
 - whether ``comp_steps`` over 2 KMAX + 1 steps (KMAX = ``_k_steps``, 4
   or 2 with thinning, the same in every tree) from a nonzero carry
   equals as many launches of the one-step kernel bit for bit, ``q`` and
@@ -51,16 +55,17 @@ parent.  Prints:
   run: wall, steps, launches.
 
 ``--only plain`` skips the compensated sweeps and the ``Problem.run()``
-walls; ``--only sass`` stops after the ``ptxas`` and SASS reports.  ``--save`` writes those runs' final states and the sweeps'
+walls; ``--only comp`` times the compensated sweeps alone (no plain
+route, no runs); ``--only sass`` stops after the ``ptxas`` and SASS
+reports.  ``--save`` writes those runs' final states and the sweeps'
 outputs to FILE; ``--compare`` prints, per output, whether two such
 files hold the same values bit for bit.  ``--variant NAME DIR`` writes a
 copy of the tree (``gapflow_torch``, ``chip_smoke.py``) into DIR whose
-sweeps take another tile, to be timed with ``--root DIR``: ``comp16``,
-compensated sweeps on 16 x 32 tiles of 256 threads (in place of 32 x 32
-on 512), with and without thinning; ``r4w8`` and ``r4w16``, plain
-sweeps whose threads own 4 window rows in blocks of 8 or 16 warps (in
-place of 2 rows and 16 warps), the second compiled for one block a SM;
-``b1``, the plain sweeps compiled for one block a SM (in place of two).
+register sweeps (plain and compensated) take another tile, to be timed
+with ``--root DIR``: ``r4w8`` and ``r4w16``, threads that own 4 window
+rows in blocks of 8 or 16 warps (in place of 2 rows and 16 warps), the
+second compiled for one block a SM; ``b1``, the sweeps compiled for one
+block a SM (128 registers a thread, in place of two blocks and 64).
 """
 
 import argparse
@@ -76,6 +81,7 @@ os.environ["GAPFLOW_X64"] = "0"
 HERE = Path(__file__).resolve().parents[1]
 
 N = 1024
+N_CELL = 2048            # the benchmark cells' grid
 SWEEP_STEPS = 1024       # one chunk of run_compiled_fast
 ONCE_STEPS = 256
 FV_STEPS = 5000          # chip_smoke.py phase 3o
@@ -122,9 +128,6 @@ def time_ms(fn, reps):
 
 # the lines of csrc/ each variant rewrites: (file, old, new)
 VARIANTS = {
-    "comp16": (("stencil_multi.cuh", "int TX = 32;", "int TX = 16;"),
-               ("stencil_multi.cuh", "int THREADS = 512;",
-                "int THREADS = 256;")),
     "r4w8": (("stencil_sweep.cuh", "int R = 2;", "int R = 4;"),
              ("stencil_sweep.cuh", "int WARPS = 16;", "int WARPS = 8;")),
     "r4w16": (("stencil_sweep.cuh", "int R = 2;", "int R = 4;"),
@@ -328,6 +331,16 @@ def example_1d():
     return yaml.safe_dump(cfg)
 
 
+def asperity_bwr_yaml(CS, n):
+    """``chip_smoke.py``'s asperity without its Eyring thinning: the BWR
+    contact on four D/N edges of the benchmark cell ``asperity-bwr``."""
+    text, hits = re.subn(r",\s*thinning: \{[^}]*\}", "",
+                         CS.asperity_yaml(n, CS.MAX_IT))
+    if hits != 1:
+        raise SystemExit("asperity_bwr_yaml: no thinning section found")
+    return text
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
@@ -335,7 +348,7 @@ def main():
     ap.add_argument("--compare", nargs=2)
     ap.add_argument("--variant", nargs=2, metavar=("NAME", "DIR"))
     ap.add_argument("--sass", action="store_true")
-    ap.add_argument("--only", choices=("plain", "sass"))
+    ap.add_argument("--only", choices=("plain", "comp", "sass"))
     args = ap.parse_args()
     if args.variant:
         tile_variant(*args.variant)
@@ -375,13 +388,28 @@ def main():
                 N, CS.MAX_IT)), True)):
         p = make()
         q, st, dt = CS.kernel_inputs(p, amp=0.01, ghosted=bc)
-        plain_route(S, CS, label, q, st, dt, p._solver_cfg, bc, saved)
+        if args.only != "comp":
+            plain_route(S, CS, label, q, st, dt, p._solver_cfg, bc, saved)
         if args.only != "plain":
             sweeps_and_witness(S, label, q, st, dt, p._solver_cfg, bc,
                                saved)
-    fv_runs(S, CS)
+    for label, make, bc in (() if args.only == "plain" else (
+            (f"journal {N_CELL}", lambda: CS.journal(N_CELL, N_CELL,
+                                                     dt=1e-11), False),
+            (f"asperity BWR {N_CELL}", lambda: CS.problem(
+                asperity_bwr_yaml(CS, N_CELL)), True),
+            (f"inclined slider {N_CELL}", lambda: CS.problem(
+                CS.inclined_yaml(N_CELL, CS.MAX_IT)), True),
+            (f"asperity Eyring {N_CELL}", lambda: CS.problem(
+                CS.asperity_yaml(N_CELL, CS.MAX_IT)), True))):
+        p = make()
+        q, st, dt = CS.kernel_inputs(p, amp=0.01, ghosted=bc)
+        sweeps_and_witness(S, label, q, st, dt, p._solver_cfg, bc, saved)
+        del p, q, st
+    if args.only != "comp":
+        fv_runs(S, CS)
 
-    for phase, make in (() if args.only == "plain" else (
+    for phase, make in (() if args.only in ("plain", "comp") else (
             ("3", lambda: CS.journal(N, N, dt=1e-11, max_it=CS.MAX_IT)),
             ("3b", lambda: CS.problem(CS.inclined_yaml(N, CS.MAX_IT))),
             ("3c", lambda: CS.problem(CS.asperity_yaml(N, 1026))),

@@ -8,7 +8,7 @@ JAX kernels need a width that is a multiple of 128):
 - the slice: ``make_pallas_loop(compensated=True, with_lo=True)`` from
   that carry over a number of steps that is no multiple of the JAX
   loop's sweep depth k, 10 on periodic edges (k = 4: two sweeps and two
-  steps; the port's sweeps of 3 leave one) and 7 on D/N x edges with
+  steps; the port's sweeps of 2 leave none) and 7 on D/N x edges with
   Barus and Eyring thinning (k = 2: three sweeps and one step), against
   the JAX ``make_pallas_loop(..., compensated=True, with_lo=True)(...,
   q_lo)`` in Pallas interpret mode at float64: ``q``
@@ -31,14 +31,19 @@ JAX kernels need a width that is a multiple of 128):
   one-step witnesses ``comp_step_once``, ``comp_step_bc_once``) run
   their twins for CPU tensors and count no launch;
 - the loop's split: the whole run goes to one call of the route's sweep
-  wrapper, whose depth is ``_comp_k_steps`` (3, or 1 with shear
+  wrapper, whose depth is ``_comp_k_steps`` (2, or 1 with shear
   thinning), which splits it into sweeps of that depth and one remainder
   sweep, one case per route; the depth lies in the kernel's range
-  (``_k_steps``).
+  (``_k_steps``), and in ``1..KMAX`` of the register sweep body
+  (``SweepGeo`` in ``csrc/stencil_sweep.cuh``), with and without shear
+  thinning.
 
 The sweeps themselves run only on a GPU: tests/test_torch_gpu.py holds
 them bit for bit against the one-step compensated kernels.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -172,7 +177,7 @@ def test_comp_wrappers_use_twins_only_on_cpu(case):
 
 
 @pytest.mark.parametrize("case, route, k", [
-    ("periodic", "comp_steps", 3), ("dn_x", "comp_steps_bc", 3),
+    ("periodic", "comp_steps", 2), ("dn_x", "comp_steps_bc", 2),
     ("dn_x_barus_eyring", "comp_steps_bc", 1),
     ("periodic_eyring", "comp_steps_bc", 1)])
 def test_compensated_loop_hands_the_whole_run_to_the_sweeps(
@@ -205,3 +210,18 @@ def test_compensated_loop_hands_the_whole_run_to_the_sweeps(
     q = loop(ts.q, ts.topo, ts.extra, ts.dt, 10)
     assert calls == [(10, {})]
     assert torch.isfinite(q).all()
+
+
+@pytest.mark.parametrize("case", ["periodic", "periodic_eyring"])
+def test_comp_sweep_depth_lies_in_the_register_body_range(case):
+    """``_comp_k_steps(cfg)`` lies in ``1..KMAX`` of ``SweepGeo<THIN>``,
+    the register sweep body's most steps a sweep (read from its source),
+    without shear thinning and with it; ``_k_steps`` is that KMAX."""
+    grid, props = ("", DH) if case == "periodic" else BC_CASES[case]
+    cfg = port_cfg(yaml(grid, props))
+    src = (Path(S.__file__).resolve().parents[1] / "csrc"
+           / "stencil_sweep.cuh").read_text()
+    thin_max, plain_max = map(int, re.search(
+        r"KMAX = THIN \? (\d+) : (\d+);", src).groups())
+    kmax = thin_max if cfg.thinning is not None else plain_max
+    assert 1 <= S._comp_k_steps(cfg) <= kmax == S._k_steps(cfg)

@@ -87,13 +87,14 @@ def test_comp_steps_matches_twin(cuda_problem):
 
 @pytest.mark.gpu
 def test_run_takes_the_kernels(cuda_problem):
-    """10 steps: three compensated sweeps of 3 and one of 1, one C
-    call."""
+    """10 steps: compensated sweeps of ``_comp_k_steps`` (5 of 2) and one
+    of the remainder, one C call."""
     S.reset_launches()
     cuda_problem.run()
     assert cuda_problem._route == "run_compiled_fast"
-    assert S.LAUNCHES == {**S.LAUNCHES, "comp_sweep": 4}
-    assert sum(S.LAUNCHES.values()) == 4
+    sweeps = -(-10 // S._comp_k_steps(cuda_problem._solver_cfg))
+    assert S.LAUNCHES == {**S.LAUNCHES, "comp_sweep": sweeps}
+    assert sum(S.LAUNCHES.values()) == sweeps
 
 
 @pytest.mark.gpu
@@ -217,9 +218,17 @@ numerics: {CFL: 0.5, adaptive: 0, tol: 1e-30, dt: 0.05, max_it: 10}
 properties: {shear: 2.15, bulk: 0., EOS: BWR, T: 1.0, rho0: 0.8,
              thinning: {name: Eyring, tauE: 0.002}}
 """
+# D/N edges on y alone, without and with Eyring thinning: with BC_CASES
+# (x alone, both axes, periodic with thinning) every instance of the
+# sweeps, compiled per periodic axis and thinning
+DN_Y = "yS: ['D', 'N', 'N'], yN: ['D', 'N', 'N'], yS_D: 877.7007, " \
+       "yN_D: 877.7007"
+EDGE_CASES = {**BC_CASES, "dn_y": (DN_Y, BC_CASES["dn_x"][1]),
+              "dn_y_eyring": (DN_Y, BC_CASES["periodic_eyring"][1])}
 # (case, Ny): the ragged 40 x 72 grid, and 1D grids (40 x 1), where a
 # tile's window wraps onto its one column
-COMP_CASES = [*((c, 72) for c in ("periodic", *BC_CASES, "asperity_eyring")),
+COMP_CASES = [*((c, 72) for c in ("periodic", *EDGE_CASES,
+                                  "asperity_eyring")),
               ("periodic", 1), ("dn_x", 1), ("dn_x_barus_eyring", 1)]
 
 
@@ -233,7 +242,7 @@ def _comp_problem(case, ny=72):
         p = Problem.from_string(ASPERITY, device="cuda", dtype=torch.float32)
         p._pre_run()
         return p
-    return _problem(*BC_CASES[case], ny=ny,
+    return _problem(*EDGE_CASES[case], ny=ny,
                     dt=2e-12 if case == "dn_x_barus_eyring" else 2e-11)
 
 
@@ -270,8 +279,9 @@ def test_comp_sweeps_match_one_step_kernel(cuda, case, ny):
     """K2c/K3c: n steps in sweeps of the main path's depth k equal n
     launches of the one-step compensated kernel bit for bit, q and q_lo,
     from a nonzero carry on the ragged 40 x 72 grid and on 1D grids,
-    n = 1..KMAX and 2 KMAX + 1; ceil(n / k) launches; the inputs
-    untouched."""
+    periodic, D/N on x, on y and on both, with and without Eyring
+    thinning (every instance of comp_sweep_kernel), n = 1..KMAX and
+    2 KMAX + 1; ceil(n / k) launches; the inputs untouched."""
     p = _comp_problem(case, ny)
     cfg = p._solver_cfg
     inputs, once, steps, _, key = _comp_route(case)
@@ -295,8 +305,10 @@ def test_comp_sweeps_match_one_step_kernel(cuda, case, ny):
 @pytest.mark.parametrize("case, ny", COMP_CASES)
 def test_comp_sweeps_of_every_depth_match_one_step_kernel(cuda, case, ny):
     """k = 1..KMAX steps in one sweep, and n = 2 KMAX + 1 steps in sweeps
-    of each depth k (n no multiple of k but for k = 1), through the C
-    sweep entry, equal as many one-step launches bit for bit."""
+    of each depth k (n no multiple of k but for k = 1: a remainder
+    sweep), through the C sweep entry, equal as many one-step launches
+    bit for bit, q and q_lo, from a nonzero carry, on every case of
+    COMP_CASES."""
     p = _comp_problem(case, ny)
     cfg = p._solver_cfg
     inputs, once, _, entry, key = _comp_route(case)
@@ -544,8 +556,7 @@ def test_plain_loop_takes_the_plain_kernels(cuda, grid, n, want):
 
 GP_GRIDS = {"periodic": "", "dn_x": BC_CASES["dn_x"][0],
             "dn_all_asymmetric": BC_CASES["dn_all_asymmetric"][0],
-            "dn_y": "yS: ['D', 'N', 'N'], yN: ['D', 'N', 'N'], "
-                    "yS_D: 877.7007, yN_D: 877.7007"}
+            "dn_y": DN_Y}
 
 
 def _gp_problem(tmp_path, grid="", gp="all", n=128, **kw):
