@@ -2,10 +2,12 @@
 the metrics and the check against the reference.
 
 Everything that belongs to one configuration, traffic mix or metric is a
-file of its own, found by the name ``BENCHMARK.json`` gives it:
-``configs/<config>.json`` (through the entry's ``file``),
-``traffic/<traffic>.json``, ``limits/<workload>.json`` and
-``metrics/<metric>.py``.  A cell is added by adding files and entries.
+file of its own, found by the name ``BENCHMARK.json`` or the
+configuration gives it: ``configs/<config>.json`` (through the entry's
+``file``), ``traffic/<traffic>.json``, ``limits/<workload>.json``,
+``metrics/<metric>.py``, ``routes/<route>.py`` (the configuration's
+``route``) and the comparison beside its ``reference`` (:mod:`check`).
+A cell is added by adding files and entries.
 
 The run, in the order it happens:
 
@@ -25,16 +27,19 @@ The run, in the order it happens:
 4. after the window: the device's peak memory, then the program's state
    freed and the reference run (:mod:`check`).
 
-The chunk calls are observed by wrapping the loop factory the run loop
-calls (``gapflow_torch.problem.make_pallas_loop``): the wrapper passes
-every call through, and keeps the input and output of the chunk the check
-draws from the seed.
+The run must take the route (``Problem._route``) its configuration
+names.  That route's file observes its chunk calls: ``install(rec)``
+makes each chunk of the runs that follow pass through
+:meth:`Recorder.call`, and returns the uninstaller.  The recorder counts
+the chunks and their steps, and keeps the input and output of the chunk
+the check draws from the seed.
 """
 
 import gc
 import importlib.util
 import json
 import os
+import shutil
 import signal
 import subprocess
 import tempfile
@@ -86,21 +91,32 @@ class Cell:
         return "workloads" not in metric or self.name in metric["workloads"]
 
 
-def reader(name, root=ROOT):
-    """``read(run)`` of ``metrics/<name>.py``."""
-    path = root / "benchmark" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"metric_{name}", path)
+def load_module(path, name):
+    """The Python file ``path``, loaded as a module named ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(name, root=ROOT):
+    """``read(run)`` of ``metrics/<name>.py``."""
+    return load_module(root / "benchmark" / "metrics" / f"{name}.py",
+                       f"metric_{name}").read
+
+
+def route(name, root=ROOT):
+    """``routes/<name>.py``: the observation of the route's chunks."""
+    return load_module(root / "benchmark" / "routes" / f"{name}.py",
+                       f"route_{name}")
 
 
 class Recorder:
-    """Wraps the run loop's loop factory: counts the chunks and their
-    steps, keeps the input and output of the chunks it is asked to keep
-    (``sample``, the one the check draws, and any in ``keep``) and of the
-    last chunk, and opens and closes the profile (``profile``, set for a
-    traced run) around the ``traced`` chunks."""
+    """Sees every chunk call of the run (:meth:`call`): counts the chunks
+    and their steps, keeps the input and output of the chunks it is asked
+    to keep (``sample``, the one the check draws, and any in ``keep``) and
+    of the last chunk, and opens and closes the profile (``profile``, set
+    for a traced run) around the ``traced`` chunks."""
 
     def __init__(self, sample, keep=()):
         self.sample = sample
@@ -113,32 +129,28 @@ class Recorder:
         self.kept = {}
         self.last = None
 
-    def wrap(self, make_loop):
-        def make(*args, **kwargs):
-            loop = make_loop(*args, **kwargs)
-
-            def chunk(q, topo, extra, dt, n, *rest):
-                i = len(self.steps)
-                self.calls.append(time.perf_counter())
-                if self.traced and i == self.traced[0]:
-                    self.profile.start()
-                if self.profile is not None and self.profile.active:
-                    from torch.profiler import record_function
-                    with record_function(devtrace.CHUNK):
-                        out = loop(q, topo, extra, dt, n, *rest)
-                else:
-                    out = loop(q, topo, extra, dt, n, *rest)
-                self.steps.append(int(n))
-                self.last = (i, q, out, float(dt), int(n))
-                if i in self.keep:
-                    self.kept[i] = self.last
-                if self.traced and i == self.traced[-1]:
-                    self.close()
-                return out
-
-            return chunk
-
-        return make
+    def call(self, chunk, q, dt, n, state=None):
+        """One chunk call, ``chunk()``, of ``n`` steps at ``dt`` from the
+        state ``q``; returns what it returns.  ``state`` picks the end
+        state out of that (the whole of it without)."""
+        i = len(self.steps)
+        self.calls.append(time.perf_counter())
+        if self.traced and i == self.traced[0]:
+            self.profile.start()
+        if self.profile is not None and self.profile.active:
+            from torch.profiler import record_function
+            with record_function(devtrace.CHUNK):
+                out = chunk()
+        else:
+            out = chunk()
+        self.steps.append(int(n))
+        self.last = (i, q, out if state is None else state(out), float(dt),
+                     int(n))
+        if i in self.keep:
+            self.kept[i] = self.last
+        if self.traced and i == self.traced[-1]:
+            self.close()
+        return out
 
     def close(self):
         """Stop an open profile; its trace learns the traced chunks'
@@ -195,7 +207,7 @@ def run_cell(name, seed, seconds, trace, device="cuda", t_start=None,
                                           device, t_start, root)
     t0 = time.perf_counter()
     values = check.numbers(cfg_run, cell.traffic, rho0, prog[rec.sample],
-                           device=device)
+                           device=device, root=root)
     print(f"benchmark: check {time.perf_counter() - t0:.1f} s")
     result["correct"], checks = check.verdict(values, cell.limits)
     result["checks"] = checks      # last in the line
@@ -213,7 +225,6 @@ def measure(cell, seed, seconds, trace, rec, device="cuda", t_start=None,
     traffic = cell.traffic
     import torch
     import yaml
-    import gapflow_torch.problem as gp_problem
     from gapflow_torch import Problem
 
     t_imports = time.time() - t_start
@@ -246,17 +257,17 @@ def measure(cell, seed, seconds, trace, rec, device="cuda", t_start=None,
         t0 = time.perf_counter()
         _build.load()
         run.spans["library"] = time.perf_counter() - t0
-    real_make = gp_problem.make_pallas_loop
-    gp_problem.make_pallas_loop = rec.wrap(real_make)
+    want = cell.config["route"]
+    uninstall = route(want, root).install(rec)
     try:
         # the warm-up chunk: the route, library and kernels the window
         # runs, and the program's handler of termination signals
         p.max_it = traffic["warmup_steps"]
         t_warm = time.perf_counter()
         p.run()
-        if p._route != "run_compiled_fast":
+        if p._route != want:
             raise RuntimeError(f"the run took the route {p._route!r}, not "
-                               "run_compiled_fast")
+                               f"{want}")
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
         t_warm = time.perf_counter() - t_warm
@@ -285,7 +296,7 @@ def measure(cell, seed, seconds, trace, rec, device="cuda", t_start=None,
         stopper.join()
         rec.close()
     finally:
-        gp_problem.make_pallas_loop = real_make
+        uninstall()
     run.spans["window"] = w1 - w0
     run.calls = [t - w0 for t in rec.calls[chunk0:]]
     gaps = np.diff(run.calls)
@@ -346,6 +357,8 @@ def measure(cell, seed, seconds, trace, rec, device="cuda", t_start=None,
     rec.last = None
     del p
     gc.collect()
+    if os.path.isdir(outdir):           # a database's training data
+        shutil.rmtree(outdir)
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     cfg_run = dict(cell.config, **{k: sections[k] for k in

@@ -6,6 +6,7 @@ initial field, the reference through the same numbers.
 """
 
 import math
+import os
 
 import numpy as np
 
@@ -51,9 +52,18 @@ def geometry_seed(cfg, seed):
                        "hmin and hmax")
 
 
+def database_seed(seed):
+    """The seed of the initial training data's sampler (``db.init_seed``),
+    drawn from ``--seed``."""
+    rng = np.random.default_rng([seed % 2 ** 63, 3])
+    return int(rng.integers(0, 2 ** 31))
+
+
 def sections(cfg, traffic, seed, outdir):
     """The program's input sections for this run: the configuration with
-    the traffic's grid and run protocol and the seed's surface."""
+    the traffic's grid and run protocol and the seed's surface; its
+    surrogates (``gp``) as they are, and its training data (``db``) kept
+    under ``outdir`` and sampled from the seed."""
     geo = dict(cfg["geometry"])
     gseed = geometry_seed(cfg, seed)
     if gseed is not None:
@@ -62,5 +72,11 @@ def sections(cfg, traffic, seed, outdir):
     numerics = dict(cfg["numerics"], max_it=traffic["max_it"],
                     tol=traffic.get("tol", cfg["numerics"]["tol"]))
     options = {"output": outdir, "use_tstamp": False, "silent": True}
-    return {"options": options, "grid": grid, "geometry": geo,
-            "numerics": numerics, "properties": dict(cfg["properties"])}
+    out = {"options": options, "grid": grid, "geometry": geo,
+           "numerics": numerics, "properties": dict(cfg["properties"])}
+    if "gp" in cfg:
+        out["gp"] = cfg["gp"]
+    if "db" in cfg:
+        out["db"] = dict(cfg["db"], dtool_path=os.path.join(outdir, "db"),
+                         init_seed=database_seed(seed))
+    return out

@@ -1,6 +1,6 @@
 """Device-idle time between one traced chunk's last port kernel and the
 next chunk's first, in milliseconds, averaged over those boundaries:
-what the host work of ``run_compiled_fast`` between two chunk calls (statistics, the
+what the run loop's host work between two chunk calls (statistics, the
 time step, the next call's statics and launch) leaves the card idle."""
 
 

@@ -18,7 +18,8 @@ def make_root(tmp, n=32, check_chunks=1):
     """Copy ``BENCHMARK.json`` and ``benchmark/`` into ``tmp`` and add the
     traffic ``t<n>`` (the n2048 protocol on an ``n x (3n/4)`` grid) with
     one cell on it per configuration, ``<config>.t<n>``, whose limits are
-    those of ``<config>.n2048``."""
+    those of ``<config>.n2048``, and which reads the metrics that cell
+    reads."""
     tmp = Path(tmp)
     shutil.copy(REPO / "BENCHMARK.json", tmp / "BENCHMARK.json")
     shutil.copytree(BENCH, tmp / "benchmark",
@@ -37,6 +38,9 @@ def make_root(tmp, n=32, check_chunks=1):
         shutil.copy(BENCH / "limits"
                     / f"{conf['name']}.n2048.json",
                     tmp / "benchmark" / "limits" / f"{cell}.json")
+        for m in spec["end_to_end"] + spec["per_layer"]:
+            if f"{conf['name']}.n2048" in m.get("workloads", ()):
+                m["workloads"].append(cell)
     (tmp / "BENCHMARK.json").write_text(json.dumps(spec))
     return tmp
 

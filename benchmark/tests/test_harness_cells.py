@@ -7,8 +7,8 @@ import json
 import pytest
 
 import cellkit
-import check
 import harness
+from reference import fv_check
 
 
 def test_cell_added_as_files_is_listed(tmp_path):
@@ -30,7 +30,7 @@ def test_tiny_cell_runs_end_to_end(tmp_path, monkeypatch, config):
                            root=root)
     assert list(res)[:3] == ["correct", "attempted", "failed"]
     assert list(res)[-1] == "checks"
-    assert list(res["checks"]) == list(check.NAMES)
+    assert list(res["checks"]) == list(fv_check.NAMES)
     assert set(res["metrics"]) == {"cell_updates_per_s", "setup_s"}
     assert res["metrics"]["cell_updates_per_s"]["value"] > 0
     assert res["attempted"] >= 1 and res["failed"] == 0
